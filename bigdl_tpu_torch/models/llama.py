@@ -1,0 +1,271 @@
+"""Llama-family decoder (counterpart of ``bigdl_tpu/models/llama.py``).
+
+Parameters are a plain dict with the JAX package's layout, every linear
+contraction-major ([K, N] dense or QTensor) and per-layer leaves stacked
+along a leading L axis::
+
+    {"embed_tokens": [V, D],
+     "layers": {"input_layernorm": [L, D], "post_attention_layernorm": [L, D],
+                "q_proj" | "k_proj" | "v_proj" | "o_proj" | "gate_proj" |
+                "up_proj" | "down_proj" (or merged "qkv_proj" /
+                "gate_up_proj"): stacked QTensor or dense},
+     "norm": [D],
+     "lm_head": [D, V] QTensor or dense (absent when tied)}
+
+A Python loop over layers stands in for ``lax.scan``. The slab KV cache is
+updated in place. Config features outside the ported serving path (alibi,
+soft-caps, sliding windows, parallel or sandwich residuals, MoE, scaled
+rope, paged KV) raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from bigdl_tpu_torch.ops.attention import sdp_attention
+from bigdl_tpu_torch.ops.embedding import embedding_lookup
+from bigdl_tpu_torch.ops.kvcache import (KVCache, init_cache, read_layer,
+                                         update_layer)
+from bigdl_tpu_torch.ops.matmul import linear
+from bigdl_tpu_torch.ops.norms import rms_norm
+from bigdl_tpu_torch.ops.quant import QTensor, concat_qtensors_n
+from bigdl_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rope_freqs
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    """The JAX package's config fields; defaults are Llama-2-7B."""
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 32
+    head_dim: Optional[int] = None
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    rope_scaling_factor: float = 1.0
+    max_position_embeddings: int = 4096
+    tie_word_embeddings: bool = False
+    attention_bias: bool = False
+    mlp_bias: bool = False
+    sliding_window: Optional[int] = None
+    norm_type: str = "rmsnorm"
+    rms_weight_offset: float = 0.0
+    hidden_act: str = "silu"
+    mlp_gated: bool = True
+    rope_interleaved: bool = False
+    rotary_dim: Optional[int] = None
+    use_rope: bool = True
+    learned_positions: bool = False
+    parallel_residual: bool = False
+    shared_input_norm: bool = False
+    use_alibi: bool = False
+    embed_scale: float = 1.0
+    embed_norm: bool = False
+    logits_soft_cap: Optional[float] = None
+    attn_soft_cap: Optional[float] = None
+    lm_head_bias: bool = False
+    rope_scaling: Optional[Tuple[Tuple[str, Any], ...]] = None
+    sandwich_norms: bool = False
+    query_pre_attn_scalar: Optional[float] = None
+    alt_sliding_window: bool = False
+    num_local_experts: int = 0
+    num_experts_per_tok: int = 2
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.hidden_size // self.num_attention_heads
+
+
+_UNPORTED = (
+    ("use_alibi", False), ("sliding_window", None), ("logits_soft_cap", None),
+    ("attn_soft_cap", None), ("parallel_residual", False),
+    ("sandwich_norms", False), ("num_local_experts", 0),
+    ("rope_scaling", None), ("norm_type", "rmsnorm"),
+    ("learned_positions", False), ("embed_norm", False),
+    ("mlp_gated", True), ("hidden_act", "silu"), ("use_rope", True),
+    ("alt_sliding_window", False), ("query_pre_attn_scalar", None),
+)
+
+
+def check_supported(cfg: LlamaConfig) -> None:
+    """Raise for config features the port does not carry yet."""
+    for field, default in _UNPORTED:
+        if getattr(cfg, field) != default:
+            raise NotImplementedError(
+                f"bigdl_tpu_torch llama: {field}={getattr(cfg, field)!r} is "
+                "not ported yet")
+
+
+def merge_projections(params: Dict[str, Any], cfg: LlamaConfig
+                      ) -> Dict[str, Any]:
+    """Fuse q/k/v into one [D, (H+2Hkv)*hd] weight and gate/up into one
+    [D, 2F] (bit-exact: block quantization is per column). Skips a group
+    whose members are missing, carry biases, or mix qtypes."""
+    layers = params.get("layers")
+    if not isinstance(layers, dict):
+        return params
+
+    def bundle(names):
+        ws = [layers.get(nm) for nm in names]
+        if any(w is None for w in ws) or any(
+                f"{nm}_bias" in layers for nm in names):
+            return None
+        if all(isinstance(w, QTensor) for w in ws):
+            if len({w.qtype for w in ws}) != 1 \
+                    or len({w.shape[0] for w in ws}) != 1:
+                return None
+            return concat_qtensors_n(ws)
+        if any(isinstance(w, QTensor) for w in ws):
+            return None
+        if len({w.dtype for w in ws}) != 1:
+            return None
+        return torch.cat(ws, dim=-1)
+
+    new = dict(layers)
+    changed = False
+    for merged, names in (("qkv_proj", ("q_proj", "k_proj", "v_proj")),
+                          ("gate_up_proj", ("gate_proj", "up_proj"))):
+        w = bundle(names)
+        if w is not None:
+            new[merged] = w
+            for nm in names:
+                new.pop(nm)
+            changed = True
+    if not changed:
+        return params
+    return {**params, "layers": new}
+
+
+def layer_params(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer i's slice of the stacked leaves (views, no copies)."""
+    return {name: (w.index(i) if isinstance(w, QTensor) else w[i])
+            for name, w in layers.items()}
+
+
+def _lm_head(x: torch.Tensor, params, cfg: LlamaConfig) -> torch.Tensor:
+    """Final projection (tied or separate); logits in f32."""
+    lm_head = params.get("lm_head")
+    if lm_head is None:
+        emb = params["embed_tokens"]
+        if isinstance(emb, QTensor):             # quantized table is [D, V]
+            logits = linear(x, emb)
+        else:
+            logits = torch.matmul(x.to(torch.float32),
+                                  emb.to(x.dtype).to(torch.float32).t())
+    else:
+        logits = linear(x, lm_head)
+    return logits.to(torch.float32)
+
+
+def _norm(x, w, cfg: LlamaConfig):
+    if cfg.rms_weight_offset:
+        w = w.to(torch.float32) + cfg.rms_weight_offset
+    return rms_norm(x, w, cfg.rms_norm_eps)
+
+
+def embed_prologue(params, cfg: LlamaConfig, tokens: torch.Tensor,
+                   compute_dtype) -> torch.Tensor:
+    x = embedding_lookup(params["embed_tokens"], tokens, compute_dtype)
+    if cfg.embed_scale != 1.0:
+        x = x * torch.tensor(cfg.embed_scale, dtype=compute_dtype)
+    return x
+
+
+def _mlp(hidden: torch.Tensor, lp, cfg: LlamaConfig) -> torch.Tensor:
+    if "gate_up_proj" in lp:
+        gu = linear(hidden, lp["gate_up_proj"])
+        f = gu.shape[-1] // 2
+        inner = F.silu(gu[..., :f]) * gu[..., f:]
+    else:
+        inner = F.silu(linear(hidden, lp["gate_proj"])) \
+            * linear(hidden, lp["up_proj"])
+    return linear(inner, lp["down_proj"])
+
+
+def _split_qkv(qkv, b, sq, h, hkv, hd):
+    """Merged-projection output [B, Sq, (H+2Hkv)*hd] -> q/k/v heads."""
+    q = qkv[..., :h * hd].reshape(b, sq, h, hd)
+    k = qkv[..., h * hd:(h + hkv) * hd].reshape(b, sq, hkv, hd)
+    v = qkv[..., (h + hkv) * hd:].reshape(b, sq, hkv, hd)
+    return q, k, v
+
+
+def _attn_block(hidden, lp, cfg: LlamaConfig, cos, sin, cache: KVCache,
+                lidx: int):
+    """QKV + rope + cache append + attention + output projection (the
+    slab branch of the JAX `_attn_block`)."""
+    b, sq, _ = hidden.shape
+    h, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.hd
+    if "qkv_proj" in lp:
+        q, k, v = _split_qkv(linear(hidden, lp["qkv_proj"]),
+                             b, sq, h, hkv, hd)
+    else:
+        q = linear(hidden, lp["q_proj"]).reshape(b, sq, h, hd)
+        k = linear(hidden, lp["k_proj"]).reshape(b, sq, hkv, hd)
+        v = linear(hidden, lp["v_proj"]).reshape(b, sq, hkv, hd)
+    q = apply_rope(q, cos, sin, interleaved=cfg.rope_interleaved)
+    k = apply_rope(k, cos, sin, interleaved=cfg.rope_interleaved)
+    update_layer(cache.k, cache.v, lidx, k, v, cache.pos)
+    kf, vf = read_layer(cache.k, cache.v, lidx)
+    attn = sdp_attention(q.contiguous(), kf, vf, cache.pos)
+    return linear(attn.reshape(b, sq, h * hd), lp["o_proj"])
+
+
+def _decoder_layer(x, lp, cfg: LlamaConfig, cos, sin, cache: KVCache,
+                   lidx: int):
+    """One block with the sequential residual."""
+    hidden = _norm(x, lp["input_layernorm"], cfg)
+    x = x + _attn_block(hidden, lp, cfg, cos, sin, cache, lidx)
+    hidden2 = _norm(x, lp["post_attention_layernorm"], cfg)
+    return x + _mlp(hidden2, lp, cfg)
+
+
+def forward(params: Dict[str, Any], cfg: LlamaConfig, tokens: torch.Tensor,
+            cache: KVCache, compute_dtype=torch.bfloat16,
+            last_only: bool = False) -> Tuple[torch.Tensor, KVCache]:
+    """Run the model on tokens [B, Sq] at the cache's positions; returns
+    (f32 logits [B, Sq or 1, V], cache with pos + Sq). The cache tensors
+    are written in place."""
+    check_supported(cfg)
+    b, sq = tokens.shape
+    pos = cache.pos
+    dev = tokens.device
+    inv_freq = rope_freqs(cfg.hd, cfg.rope_theta, rotary_dim=cfg.rotary_dim,
+                          scaling_factor=cfg.rope_scaling_factor, device=dev)
+    offs = torch.arange(sq, dtype=torch.int32, device=dev)
+    if pos.dim() == 1:                            # per-slot positions
+        positions = pos[:, None] + offs[None, :]
+        cos, sin = rope_cos_sin(positions, inv_freq)       # [B, Sq, hd/2]
+    else:
+        positions = pos + offs
+        cos, sin = rope_cos_sin(positions[None, :], inv_freq)
+    x = embed_prologue(params, cfg, tokens, compute_dtype)
+    layers = params["layers"]
+    for i in range(cfg.num_hidden_layers):
+        x = _decoder_layer(x, layer_params(layers, i), cfg, cos, sin, cache,
+                           i)
+    if last_only:
+        x = x[:, -1:, :]
+    x = _norm(x, params["norm"], cfg)
+    logits = _lm_head(x, params, cfg)
+    return logits, KVCache(cache.k, cache.v, pos + sq)
+
+
+def forward_last_token(params, cfg: LlamaConfig, tokens, cache: KVCache,
+                       compute_dtype=torch.bfloat16):
+    """Prefill variant of `forward` with lm_head on the final position."""
+    return forward(params, cfg, tokens, cache, compute_dtype, last_only=True)
+
+
+def new_cache(cfg: LlamaConfig, batch: int, max_seq: int,
+              per_slot_pos: bool = False, device="cuda") -> KVCache:
+    """An empty bf16 slab cache for this config."""
+    return init_cache(cfg.num_hidden_layers, batch, max_seq,
+                      cfg.num_key_value_heads, cfg.hd,
+                      per_slot_pos=per_slot_pos, device=device)

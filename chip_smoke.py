@@ -1,0 +1,638 @@
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases, all of them on every run, each printing one JSON line:
+
+1. device: name and power limit (nvidia-smi); fails without CUDA.
+2. build: nvcc builds every kernel from ``bigdl_tpu_torch/csrc``.
+3. kernels: each hand-written kernel (B1 dequant GEMV, B2 dequant GEMM,
+   B3 decode attention, B4 prefill attention) against its plain PyTorch
+   version on the card, at Llama-2-7B shapes, with times of the kernel,
+   the plain version and one PyTorch library call, and the least time the
+   card could take (bytes / 3.35 TB/s or flops / 989 TFLOP/s).
+4. reference: a 2-layer cut of the full-width model, prefill + one decode
+   step on the card (kernels) against the same on the CPU (plain).
+5. engine: seeded full-width Llama-2-7B, sym_int4 linears, merged
+   projections, through ``LLMEngine`` (max_batch 8, max_seq 2048): eight
+   requests whose prompt lengths cover every kernel route, 32 new tokens
+   each; every request must finish, greedy and seeded requests must repeat,
+   and every kernel's launch count must rise during the run. A last pass
+   of the same requests profiles a few pure-decode steps (device time by
+   kernel group, launches, idle share).
+
+Then a ``kernels`` summary line, the card's name and power limit, and the
+final ``{"ok": true, "device": ...}`` line. Any failed check exits non-zero
+before the final line is printed. Imports torch, numpy and the port only.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+PEAK_BYTES_S = 3.35e12        # H100 SXM HBM3
+PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor cores
+MATMUL_TOL = 2e-2             # kernel vs plain, bf16 output (~2 ulp at 1)
+ATTN_TOL = 2e-2               # kernel vs plain, bf16 output, f32 softmax
+
+LLAMA2_7B_LINEARS = {          # [K, N] of each merged linear
+    "qkv_proj": (4096, 12288),
+    "o_proj": (4096, 4096),
+    "gate_up_proj": (4096, 22016),
+    "down_proj": (11008, 4096),
+    "lm_head": (4096, 32000),
+}
+
+KERNELS = {
+    "dequant_gemv": dict(
+        source="bigdl_tpu_torch/csrc/dequant_gemv.cu",
+        replaces="bigdl_tpu/ops/pallas/dequant_matmul.py:473"),
+    "dequant_gemm": dict(
+        source="bigdl_tpu_torch/csrc/dequant_gemm.cu",
+        replaces="bigdl_tpu/ops/pallas/dequant_matmul.py:641"),
+    "decode_attention": dict(
+        source="bigdl_tpu_torch/csrc/decode_attention.cu",
+        replaces="bigdl_tpu/ops/pallas/decode_attention.py:201"),
+    "prefill_attention": dict(
+        source="bigdl_tpu_torch/csrc/prefill_attention.cu",
+        replaces="bigdl_tpu/ops/pallas/prefill_attention.py:194"),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def bound_ms(nbytes: float, flops: float):
+    tb = nbytes / PEAK_BYTES_S
+    tf = flops / PEAK_BF16_FLOPS
+    return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
+
+
+class Timer:
+    """Per-launch CUDA-event timing with the 50 MB L2 flushed before each
+    launch (the main path meets its weights and caches cold). A spin on
+    the card after the flush keeps it busy while the host enqueues the
+    call, so the events time the device, not the Python wrapper."""
+
+    def __init__(self, device):
+        self.flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
+
+    def ms(self, fn, iters: int = 10) -> float:
+        fn()
+        torch.cuda.synchronize()
+        total = 0.0
+        for _ in range(iters):
+            self.flush.zero_()
+            torch.cuda._sleep(1_000_000)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+        return total / iters
+
+
+def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def allclose(got, want, tol) -> bool:
+    g, w = got.float(), want.float()
+    return bool(torch.isfinite(g).all()) and bool(
+        ((g - w).abs() <= tol + tol * w.abs()).all())
+
+
+# -- phases --------------------------------------------------------------------
+
+
+def phase_device():
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is false: no GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
+        f"nvidia-smi failed: {smi.stderr.strip()}"
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "nvidia_smi": card,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "python": sys.version.split()[0]})
+    return card
+
+
+def phase_build():
+    from bigdl_tpu_torch import _native
+
+    t0 = time.perf_counter()
+    paths = _native.build_all()
+    for name in _native.SOURCES:
+        _native.kernel(name)
+    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+          "libraries": {k: v.split("bigdl_tpu_torch/")[-1]
+                        for k, v in paths.items()}})
+
+
+def _matmul_case(timer, name, x, w, kernel_fn, iters):
+    from bigdl_tpu_torch.ops.cuda.dequant_matmul import plain_q_matmul
+    from bigdl_tpu_torch.ops.quant import dequantize
+
+    got = kernel_fn(x, w)
+    want = plain_q_matmul(x, w)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    ok = allclose(got, want, MATMUL_TOL)
+    m, k = x.shape
+    n = w.n
+    nbytes = (m * k * 2 + w.nbytes + m * n * 2)
+    b_ms, b_by = bound_ms(nbytes, 2.0 * m * k * n)
+    rec = {"kernel": name, "qtype": w.qtype, "M": m, "K": k, "N": n,
+           "max_abs_err": err, "tol": MATMUL_TOL, "ok": ok,
+           "bound_ms": b_ms, "bound_by": b_by}
+    if iters:
+        dense = dequantize(w, torch.bfloat16)
+        rec["ms"] = timer.ms(lambda: kernel_fn(x, w), iters)
+        rec["plain_ms"] = timer.ms(lambda: plain_q_matmul(x, w), iters)
+        # library yardstick: dequantize to bf16, then one cuBLAS GEMM; and
+        # the GEMM alone on the pre-dequantized weight (a dense bf16 layer)
+        rec["library_ms"] = timer.ms(
+            lambda: torch.matmul(x, dequantize(w, torch.bfloat16)), iters)
+        rec["matmul_only_ms"] = timer.ms(lambda: torch.matmul(x, dense),
+                                         iters)
+        del dense
+    return rec
+
+
+def _attn_bounds(q, k, pos_list, sq):
+    b, _, h, hd = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    vis_rows = 0          # K/V rows read once per (slot, kv head)
+    pairs = 0             # visible (query, key) pairs
+    for p in pos_list:
+        vis_rows += min(s, p + sq)
+        pairs += sum(min(s, p + i + 1) for i in range(sq))
+    nbytes = 2 * q.numel() * 2 + vis_rows * hkv * hd * 2 * 2
+    flops = 4.0 * hd * h * pairs
+    return bound_ms(nbytes, flops)
+
+
+def _sdpa(q, k, v, pos_list, sq):
+    """One torch.nn.functional.scaled_dot_product_attention call computing
+    the same causal attention (timing yardstick only)."""
+    import torch.nn.functional as F
+
+    b, _, h, hd = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    kid = torch.arange(s, device=q.device)
+    qid = torch.tensor(pos_list, device=q.device)[:, None] + torch.arange(
+        sq, device=q.device)[None]
+    mask = (kid[None, None, :] <= qid[:, :, None])[:, None]   # [B,1,Sq,S]
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def call():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=(h != hkv))
+
+    try:
+        call()
+    except TypeError:           # a torch without enable_gqa: no yardstick
+        return None
+    return call
+
+
+def _attn_case(timer, randn, name, b, sq, h, hkv, hd, s, pos_list, timed):
+    """One attention kernel against the plain version on the same inputs;
+    decode takes per-slot positions, prefill one scalar position."""
+    from bigdl_tpu_torch.ops.cuda.decode_attention import (decode_attention,
+                                                           plain_attention)
+    from bigdl_tpu_torch.ops.cuda.prefill_attention import prefill_attention
+
+    fn = decode_attention if name == "decode_attention" else \
+        prefill_attention
+    q = randn(b, sq, h, hd).to(torch.bfloat16)
+    kc = randn(b, s, hkv, hd).to(torch.bfloat16)
+    vc = randn(b, s, hkv, hd).to(torch.bfloat16)
+    per_slot = name == "decode_attention"
+    pos = torch.tensor(pos_list if per_slot else pos_list[0],
+                       dtype=torch.int32, device=q.device)
+    scale = hd ** -0.5
+    got = fn(q, kc, vc, pos, scale)
+    want = plain_attention(q, kc, vc, pos, scale)
+    torch.cuda.synchronize()
+    b_ms, b_by = _attn_bounds(q, kc, pos_list * (b // len(pos_list)), sq)
+    rec = {"kernel": name, "B": b, "Sq": sq, "H": h, "Hkv": hkv, "hd": hd,
+           "S": s, "pos": pos_list if per_slot else pos_list[0],
+           "max_abs_err": max_err(got, want), "tol": ATTN_TOL,
+           "ok": allclose(got, want, ATTN_TOL),
+           "bound_ms": b_ms, "bound_by": b_by}
+    if timed:
+        lib = _sdpa(q, kc, vc, pos_list * (b // len(pos_list)), sq)
+        rec.update(ms=timer.ms(lambda: fn(q, kc, vc, pos, scale)),
+                   plain_ms=timer.ms(
+                       lambda: plain_attention(q, kc, vc, pos, scale)),
+                   library_ms=timer.ms(lib) if lib else None)
+    return rec
+
+
+def phase_kernels(timer):
+    from bigdl_tpu_torch.ops.cuda.dequant_matmul import (dequant_gemm,
+                                                         dequant_gemv)
+    from bigdl_tpu_torch.ops.quant import quantize
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+    records = []
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    # B1 / B2 at the five Llama-2-7B linear shapes, sym_int4
+    for lname, (k, n) in LLAMA2_7B_LINEARS.items():
+        w = quantize(randn(k, n, scale=0.02), "sym_int4")
+        for m, fn, kname in ((1, dequant_gemv, "dequant_gemv"),
+                             (8, dequant_gemv, "dequant_gemv"),
+                             (64, dequant_gemm, "dequant_gemm"),
+                             (128, dequant_gemm, "dequant_gemm")):
+            x = randn(m, k).to(torch.bfloat16)
+            rec = _matmul_case(timer, kname, x, w, fn, iters=10)
+            rec["linear"] = lname
+            records.append(rec)
+            emit({"phase": "kernels", **rec})
+        del w
+    # every ported qtype at a small, K-padded shape
+    for qtype in ("sym_int4", "asym_int4", "sym_int8", "nf4", "fp4", "nf3"):
+        w = quantize(randn(1000, 512, scale=0.05), qtype)
+        for m, fn, kname in ((8, dequant_gemv, "dequant_gemv"),
+                             (96, dequant_gemm, "dequant_gemm")):
+            x = randn(m, 1000).to(torch.bfloat16)
+            rec = _matmul_case(timer, kname, x, w, fn, iters=0)
+            records.append(rec)
+            emit({"phase": "kernels", **rec})
+
+    # geometry the timed cases do not reach: two m-tiles, and the 4-column
+    # loads B1 takes when N % 16 != 0
+    for m, k, n in ((20, 4096, 4096), (8, 640, 260)):
+        w = quantize(randn(k, n, scale=0.02), "sym_int4")
+        x = randn(m, k).to(torch.bfloat16)
+        rec = _matmul_case(timer, "dequant_gemv", x, w, dequant_gemv, iters=0)
+        records.append(rec)
+        emit({"phase": "kernels", **rec})
+
+    # B3: slab decode attention, per-slot positions; B4: prefill flash
+    # attention, scalar positions. Timed at Llama-2-7B geometry, checked
+    # only at the other head dims and groups the kernels are built for.
+    rng = np.random.default_rng(7)
+    cases = []
+    for h, hkv in ((32, 32), (32, 8)):
+        pos_list = [int(p) for p in rng.integers(1, 2048, 8)]
+        pos_list[0] = 2047
+        cases.append(("decode_attention", 8, 1, h, hkv, 128, 2048, pos_list,
+                      True))
+    for hd in (64, 256):
+        cases.append(("decode_attention", 4, 1, 8, 2, hd, 256,
+                      [255, 3, 130, 0], False))
+    for sq, smax, p0 in ((128, 128, 0), (128, 2048, 0), (256, 1024, 0),
+                         (256, 2048, 256)):
+        cases.append(("prefill_attention", 1, sq, 32, 32, 128, smax, [p0],
+                      True))
+    for hd in (64, 256):
+        cases.append(("prefill_attention", 2, 128, 8, 2, hd, 384, [128],
+                      False))
+    for case in cases:
+        rec = _attn_case(timer, randn, *case)
+        records.append(rec)
+        emit({"phase": "kernels", **rec})
+
+    bad = [r for r in records if not r["ok"]]
+    require(not bad, f"{len(bad)} kernel case(s) disagree with their plain "
+            f"version: {bad[:3]}")
+    return records
+
+
+def _cut_params(params, n_layers):
+    from bigdl_tpu_torch.ops.quant import QTensor
+
+    def cut(w):
+        if isinstance(w, QTensor):
+            return QTensor(w.data[:n_layers], w.scale[:n_layers],
+                           None if w.zero is None else w.zero[:n_layers],
+                           w.qtype, w.shape)
+        return w[:n_layers]
+
+    return {**params, "layers": {k: cut(v)
+                                 for k, v in params["layers"].items()}}
+
+
+def _to_device(params, device):
+    from bigdl_tpu_torch.ops.quant import QTensor
+
+    def mv(w):
+        if isinstance(w, QTensor):
+            return w.to(device)
+        if isinstance(w, dict):
+            return {k: mv(v) for k, v in w.items()}
+        return w.to(device)
+
+    return mv(params)
+
+
+def phase_reference(params, cfg):
+    """2-layer cut: prefill 100 tokens (B2, B4) + one decode step (B1, B3)
+    on the card against the plain versions on the CPU."""
+    import dataclasses
+
+    from bigdl_tpu_torch.models import llama
+
+    cut_cfg = dataclasses.replace(cfg, num_hidden_layers=2)
+    gpu_params = _cut_params(params, 2)
+    cpu_params = _to_device(gpu_params, "cpu")
+    rng = np.random.default_rng(3)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size, (1, 128)))
+    nxt = torch.tensor(rng.integers(0, cfg.vocab_size, (1, 1)))
+    out = {}
+    for dev, p in (("cuda", gpu_params), ("cpu", cpu_params)):
+        cache = llama.new_cache(cut_cfg, 1, 256, device=dev)
+        with torch.no_grad():
+            lg1, cache = llama.forward(p, cut_cfg, prompt.to(dev), cache)
+            lg2, cache = llama.forward(p, cut_cfg, nxt.to(dev), cache)
+        out[dev] = (lg1.float().cpu(), lg2.float().cpu())
+    res = {"phase": "reference", "layers": 2, "prompt": 128}
+    ok = True
+    for i, name in enumerate(("prefill", "decode")):
+        got, want = out["cuda"][i], out["cpu"][i]
+        scale = float(want.abs().max())
+        err = max_err(got, want)
+        fin = bool(torch.isfinite(got).all())
+        # two layers of bf16 activations: allow 5% of the logit range
+        good = fin and got.shape == want.shape and err <= 0.05 * scale
+        top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        res[name] = {"shape": list(got.shape), "max_abs_err": err,
+                     "ref_max_abs": scale, "tol": 0.05 * scale,
+                     "finite": fin, "top1_agree": top1, "ok": good}
+        ok &= good
+    emit(res)
+    require(ok, "card forward disagrees with the CPU plain forward")
+
+
+def _run_requests(eng, requests):
+    """Feed all requests, step to completion; returns tokens, TTFT and
+    pure-decode step timing."""
+    t0 = time.perf_counter()
+    for rid, prompt, sp in requests:
+        eng.add_request(rid, prompt, sp)
+    toks = {rid: [] for rid, _, _ in requests}
+    reasons, ttft = {}, {}
+    decode_s, decode_tokens, decode_steps, steps = 0.0, 0, 0, 0
+    while eng.has_unfinished():
+        pure = eng._admitting is None and not eng.waiting
+        n_active = sum(s.active for s in eng.slots)
+        ts = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        te = time.perf_counter()
+        steps += 1
+        if pure and n_active:
+            decode_s += te - ts
+            decode_tokens += n_active
+            decode_steps += 1
+        for rid in toks:
+            for o in eng.get_outputs(rid):
+                if o.new_token_ids and rid not in ttft:
+                    ttft[rid] = te - t0
+                toks[rid].extend(o.new_token_ids)
+                if o.finished:
+                    reasons[rid] = o.finish_reason
+        require(steps < 10000, "engine did not finish")
+    wall = time.perf_counter() - t0
+    return toks, reasons, ttft, {
+        "wall_s": wall, "steps": steps,
+        "decode_tokens_per_s": decode_tokens / decode_s if decode_s else None,
+        "decode_steps": decode_steps,
+        "decode_step_ms": 1e3 * decode_s / decode_steps if decode_steps
+        else None}
+
+
+def _kernel_group(name: str) -> str:
+    for key, group in (("dequant_mma", "dequant_gemv/gemm (B1/B2)"),
+                       ("finalize_kernel", "dequant split-K sum"),
+                       ("decode_attention", "decode_attention (B3)"),
+                       ("prefill_attention", "prefill_attention (B4)"),
+                       ("gemm", "torch matmul"), ("elementwise", "elementwise"),
+                       ("reduce", "reductions"), ("index", "cache writes"),
+                       ("copy", "copies")):
+        if key in name.lower():
+            return group
+    return "other"
+
+
+def _device_ms_by_group(prof, steps):
+    """(device ms per step by kernel group, launches per step) from a
+    finished profile; raises AttributeError on a profiler without the
+    fields read here."""
+    from torch.autograd import DeviceType
+
+    groups, launches = {}, 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = (getattr(e, "self_device_time_total", 0)
+              or getattr(e, "self_cuda_time_total", 0))
+        g = _kernel_group(e.key)
+        groups[g] = groups.get(g, 0.0) + us / 1e3 / steps
+        launches += e.count
+    return groups, launches / steps
+
+
+def _profile_decode(eng, requests, steps=4):
+    """Device time of `steps` pure-decode steps (all slots active) by
+    kernel group, from torch.profiler, beside the steps' wall time. The
+    requests are admitted first and drained after. Only the profiler's
+    own start and read-out may fail ("not measured"); a failing engine
+    step fails the run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for rid, prompt, sp in requests:
+        eng.add_request(rid + "-prof", prompt, sp)
+    while eng.waiting or eng._admitting is not None:
+        eng.step()
+    torch.cuda.synchronize()
+    out = {"steps": steps}
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.__enter__()
+    except (RuntimeError, AttributeError) as e:   # profiler unavailable
+        prof = None
+        out["device_ms_per_step"] = f"not measured: {e}"
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    out["wall_ms_per_step"] = wall_ms
+    if prof is not None:
+        prof.__exit__(None, None, None)
+        try:
+            groups, launches = _device_ms_by_group(prof, steps)
+        except (RuntimeError, AttributeError) as e:
+            groups, out["device_ms_per_step"] = {}, f"not measured: {e}"
+        if groups:
+            dev = sum(groups.values())
+            out.update(device_ms_per_step=dev,
+                       device_idle_share=max(0.0, 1.0 - dev / wall_ms),
+                       kernel_launches_per_step=launches,
+                       device_ms_by_group=dict(sorted(
+                           groups.items(), key=lambda kv: -kv[1])))
+        else:
+            out.setdefault("device_ms_per_step", "not measured")
+    while eng.has_unfinished():
+        eng.step()
+        for rid, _, _ in requests:
+            eng.get_outputs(rid + "-prof")
+    return out
+
+
+def phase_engine(params, cfg, max_new=32):
+    from bigdl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from bigdl_tpu_torch.serving.engine import (EngineConfig, LLMEngine,
+                                                SamplingParams)
+    from bigdl_tpu_torch.utils.testing import SyntheticCausalLM
+
+    rng = np.random.default_rng(11)
+    # prompt lengths cover every route: <=32 (B1, plain attention),
+    # 33-64 (B2), 65-128 (B2 + B4 at Sq 128), 129-256 (torch matmul + B4
+    # at Sq 256), >256 (chunks of 256 at pos 0, 256, ...)
+    lens = [24, 48, 100, 200, 1000, 16, 64, 300]
+    seeded = {5: 1234, 7: 99}
+    requests = []
+    for i, n in enumerate(lens):
+        prompt = rng.integers(0, cfg.vocab_size, n).tolist()
+        if i in seeded:
+            sp = SamplingParams(max_tokens=max_new, temperature=0.8,
+                                top_k=40, top_p=0.95, seed=seeded[i])
+        else:
+            sp = SamplingParams(max_tokens=max_new)
+        requests.append((f"r{i}", prompt, sp))
+    model = SyntheticCausalLM(params, cfg)
+    ecfg = EngineConfig(max_batch=8, max_seq=2048)
+    eng = LLMEngine(model, ecfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    toks1, reasons1, ttft, perf = _run_requests(eng, requests)
+    counts = launch_counts()
+    toks2, reasons2, _, perf2 = _run_requests(eng, requests)
+    res = {"phase": "engine", "model": "llama2-7b", "qtype": "sym_int4",
+           "layers": cfg.num_hidden_layers, "requests": len(requests),
+           "prompt_lens": lens, "max_new_tokens": max_new,
+           "launches": counts, "finish_reasons": reasons1,
+           "ttft_s": ttft, "max_memory_allocated":
+           torch.cuda.max_memory_allocated(), **perf,
+           "repeat_run": perf2,
+           "decode_profile": _profile_decode(eng, requests)}
+    greedy_same = all(toks1[r] == toks2[r] for r, _, sp in requests
+                      if sp.temperature <= 0)
+    seeded_same = all(toks1[r] == toks2[r] for r, _, sp in requests
+                      if sp.temperature > 0)
+    all_done = all(reasons1.get(r) in ("length", "stop")
+                   for r, _, _ in requests)
+    in_vocab = all(0 <= t < cfg.vocab_size for v in toks1.values()
+                   for t in v)
+    res.update(all_finished=all_done, greedy_repeat=greedy_same,
+               seeded_repeat=seeded_same, tokens_in_vocab=in_vocab,
+               tokens={r: toks1[r][:8] for r, _, _ in requests})
+    emit(res)
+    require(all_done, f"not every request finished: {reasons1}")
+    require(all(len(toks1[r]) == max_new for r, _, _ in requests),
+            "a request produced the wrong number of tokens")
+    require(in_vocab, "token outside the vocabulary")
+    require(greedy_same, "greedy requests did not repeat")
+    require(seeded_same, "seeded requests did not repeat")
+    missing = [k for k, v in counts.items() if v <= 0]
+    require(not missing, f"kernels never launched on the main path: "
+            f"{missing}")
+    return counts
+
+
+def summary(records, counts):
+    """One entry per kernel: its launches on the engine run and the
+    numbers of its representative main-path case."""
+    rep = {
+        "dequant_gemv": dict(M=8, linear="gate_up_proj"),
+        "dequant_gemm": dict(M=128, linear="gate_up_proj"),
+        "decode_attention": dict(Hkv=32, hd=128),
+        "prefill_attention": dict(Sq=256, S=2048),
+    }
+    out = []
+    for name, meta in KERNELS.items():
+        mine = [r for r in records if r["kernel"] == name]
+        main = next(r for r in mine if "ms" in r and all(
+            r.get(k) == v for k, v in rep[name].items()))
+        out.append({"name": name, "route": "cuda", **meta,
+                    "launches": int(counts.get(name, 0)),
+                    "max_abs_err": max(r["max_abs_err"] for r in mine),
+                    "ms": main["ms"], "plain_ms": main["plain_ms"],
+                    "bound_ms": main["bound_ms"],
+                    "bound_by": main["bound_by"],
+                    "library_ms": main["library_ms"],
+                    **{k: main[k] for k in ("matmul_only_ms",) if k in main},
+                    "case": {k: main[k] for k in main if k in (
+                        "M", "K", "N", "B", "H", "Hkv", "hd", "S", "Sq",
+                        "pos")}})
+    emit({"kernels": out})
+
+
+def main() -> int:
+    import bigdl_tpu_torch  # noqa: F401  (fails here without the package)
+
+    try:
+        card = phase_device()
+        phase_build()
+        records = phase_kernels(Timer("cuda"))
+
+        from bigdl_tpu_torch.models.llama import merge_projections
+        from bigdl_tpu_torch.utils.testing import (LLAMA2_7B,
+                                                   random_llama_params)
+
+        cfg = LLAMA2_7B
+        t0 = time.perf_counter()
+        params = merge_projections(random_llama_params(
+            cfg, "sym_int4", seed=0, device="cuda"), cfg)
+        torch.cuda.synchronize()
+        emit({"phase": "model", "layers": cfg.num_hidden_layers,
+              "build_s": time.perf_counter() - t0,
+              "memory_allocated": torch.cuda.memory_allocated()})
+        phase_reference(params, cfg)
+        counts = phase_engine(params, cfg)
+        summary(records, counts)
+    except SmokeFailure as e:
+        print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
+        return 1
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
