@@ -23,7 +23,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 SOURCES = ("dequant_gemv", "dequant_gemm", "decode_attention",
-           "prefill_attention")
+           "prefill_attention", "paged_decode_attention")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-lineinfo", "-shared",
                            "-Xcompiler", "-fPIC"]
@@ -45,6 +45,9 @@ SIGNATURES = {
         + [_c_float, _c_void_p]},
     "prefill_attention": {
         "bigdl_prefill_attention": [_c_void_p] * 5 + [_c_int] * 6
+        + [_c_float, _c_void_p]},
+    "paged_decode_attention": {
+        "bigdl_paged_decode_attention": [_c_void_p] * 7 + [_c_int] * 7
         + [_c_float, _c_void_p]},
 }
 

@@ -12,10 +12,11 @@ along a leading L axis::
      "norm": [D],
      "lm_head": [D, V] QTensor or dense (absent when tied)}
 
-A Python loop over layers stands in for ``lax.scan``. The slab KV cache is
-updated in place. Config features outside the ported serving path (alibi,
-soft-caps, sliding windows, parallel or sandwich residuals, MoE, scaled
-rope, paged KV) raise NotImplementedError.
+A Python loop over layers stands in for ``lax.scan``. The slab KV cache and
+the paged arena (``forward_paged``, bf16) are updated in place. Config
+features outside the ported serving path (alibi, soft-caps, sliding
+windows, parallel or sandwich residuals, MoE, scaled rope) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -26,12 +27,14 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from bigdl_tpu_torch.ops.attention import sdp_attention
+from bigdl_tpu_torch.ops.attention import sdp_attention, sdp_attention_paged
 from bigdl_tpu_torch.ops.embedding import embedding_lookup
 from bigdl_tpu_torch.ops.kvcache import (KVCache, init_cache, read_layer,
                                          update_layer)
 from bigdl_tpu_torch.ops.matmul import linear
 from bigdl_tpu_torch.ops.norms import rms_norm
+from bigdl_tpu_torch.ops.paged import (PagedKVCache, init_paged_cache,
+                                       paged_update_layer)
 from bigdl_tpu_torch.ops.quant import QTensor, concat_qtensors_n
 from bigdl_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rope_freqs
 
@@ -196,10 +199,12 @@ def _split_qkv(qkv, b, sq, h, hkv, hd):
     return q, k, v
 
 
-def _attn_block(hidden, lp, cfg: LlamaConfig, cos, sin, cache: KVCache,
-                lidx: int):
+def _attn_block(hidden, lp, cfg: LlamaConfig, cos, sin, cache, lidx: int,
+                block_tables: Optional[torch.Tensor] = None):
     """QKV + rope + cache append + attention + output projection (the
-    slab branch of the JAX `_attn_block`)."""
+    slab and bf16 paged branches of the JAX `_attn_block`). With
+    ``block_tables`` the cache is a ``PagedKVCache``: appends scatter
+    through the table and attention reads through it."""
     b, sq, _ = hidden.shape
     h, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.hd
     if "qkv_proj" in lp:
@@ -211,29 +216,35 @@ def _attn_block(hidden, lp, cfg: LlamaConfig, cos, sin, cache: KVCache,
         v = linear(hidden, lp["v_proj"]).reshape(b, sq, hkv, hd)
     q = apply_rope(q, cos, sin, interleaved=cfg.rope_interleaved)
     k = apply_rope(k, cos, sin, interleaved=cfg.rope_interleaved)
-    update_layer(cache.k, cache.v, lidx, k, v, cache.pos)
-    kf, vf = read_layer(cache.k, cache.v, lidx)
-    attn = sdp_attention(q.contiguous(), kf, vf, cache.pos)
+    if block_tables is not None:
+        paged_update_layer(cache.k, cache.v, lidx, k, v, cache.pos,
+                           block_tables)
+        attn = sdp_attention_paged(q.contiguous(), cache.k[lidx],
+                                   cache.v[lidx], block_tables, cache.pos)
+    else:
+        update_layer(cache.k, cache.v, lidx, k, v, cache.pos)
+        kf, vf = read_layer(cache.k, cache.v, lidx)
+        attn = sdp_attention(q.contiguous(), kf, vf, cache.pos)
     return linear(attn.reshape(b, sq, h * hd), lp["o_proj"])
 
 
-def _decoder_layer(x, lp, cfg: LlamaConfig, cos, sin, cache: KVCache,
-                   lidx: int):
+def _decoder_layer(x, lp, cfg: LlamaConfig, cos, sin, cache, lidx: int,
+                   block_tables: Optional[torch.Tensor] = None):
     """One block with the sequential residual."""
     hidden = _norm(x, lp["input_layernorm"], cfg)
-    x = x + _attn_block(hidden, lp, cfg, cos, sin, cache, lidx)
+    x = x + _attn_block(hidden, lp, cfg, cos, sin, cache, lidx,
+                        block_tables)
     hidden2 = _norm(x, lp["post_attention_layernorm"], cfg)
     return x + _mlp(hidden2, lp, cfg)
 
 
-def forward(params: Dict[str, Any], cfg: LlamaConfig, tokens: torch.Tensor,
-            cache: KVCache, compute_dtype=torch.bfloat16,
-            last_only: bool = False) -> Tuple[torch.Tensor, KVCache]:
-    """Run the model on tokens [B, Sq] at the cache's positions; returns
-    (f32 logits [B, Sq or 1, V], cache with pos + Sq). The cache tensors
-    are written in place."""
+def _run(params, cfg: LlamaConfig, tokens: torch.Tensor, cache,
+         compute_dtype, last_only: bool,
+         block_tables: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Embedding, the layers over `cache` (written in place) and the
+    final norm + lm_head; returns f32 logits."""
     check_supported(cfg)
-    b, sq = tokens.shape
+    sq = tokens.shape[1]
     pos = cache.pos
     dev = tokens.device
     inv_freq = rope_freqs(cfg.hd, cfg.rope_theta, rotary_dim=cfg.rotary_dim,
@@ -249,12 +260,21 @@ def forward(params: Dict[str, Any], cfg: LlamaConfig, tokens: torch.Tensor,
     layers = params["layers"]
     for i in range(cfg.num_hidden_layers):
         x = _decoder_layer(x, layer_params(layers, i), cfg, cos, sin, cache,
-                           i)
+                           i, block_tables)
     if last_only:
         x = x[:, -1:, :]
     x = _norm(x, params["norm"], cfg)
-    logits = _lm_head(x, params, cfg)
-    return logits, KVCache(cache.k, cache.v, pos + sq)
+    return _lm_head(x, params, cfg)
+
+
+def forward(params: Dict[str, Any], cfg: LlamaConfig, tokens: torch.Tensor,
+            cache: KVCache, compute_dtype=torch.bfloat16,
+            last_only: bool = False) -> Tuple[torch.Tensor, KVCache]:
+    """Run the model on tokens [B, Sq] at the cache's positions; returns
+    (f32 logits [B, Sq or 1, V], cache with pos + Sq). The cache tensors
+    are written in place."""
+    logits = _run(params, cfg, tokens, cache, compute_dtype, last_only)
+    return logits, KVCache(cache.k, cache.v, cache.pos + tokens.shape[1])
 
 
 def forward_last_token(params, cfg: LlamaConfig, tokens, cache: KVCache,
@@ -263,9 +283,38 @@ def forward_last_token(params, cfg: LlamaConfig, tokens, cache: KVCache,
     return forward(params, cfg, tokens, cache, compute_dtype, last_only=True)
 
 
+def forward_paged(params: Dict[str, Any], cfg: LlamaConfig,
+                  tokens: torch.Tensor, cache: PagedKVCache,
+                  block_tables: torch.Tensor, compute_dtype=torch.bfloat16,
+                  last_only: bool = False
+                  ) -> Tuple[torch.Tensor, PagedKVCache]:
+    """`forward` over a paged arena: appends scatter through block_tables
+    [B, NP] int32 and attention reads through them (B5 for decode on the
+    card). Positions are per slot (``cache.pos`` [B]). With
+    ``NP * page_size == max_seq`` the logits equal the slab `forward`'s at
+    equal positions, bit for bit. The arena is written in place."""
+    logits = _run(params, cfg, tokens, cache, compute_dtype, last_only,
+                  block_tables)
+    return logits, PagedKVCache(cache.k, cache.v,
+                                cache.pos + tokens.shape[1])
+
+
+# this family's forward_paged threads block tables through its layers (the
+# JAX package's per-family flag; the port's engine serves this family only)
+SUPPORTS_PAGED_KV = True
+
+
 def new_cache(cfg: LlamaConfig, batch: int, max_seq: int,
               per_slot_pos: bool = False, device="cuda") -> KVCache:
     """An empty bf16 slab cache for this config."""
     return init_cache(cfg.num_hidden_layers, batch, max_seq,
                       cfg.num_key_value_heads, cfg.hd,
                       per_slot_pos=per_slot_pos, device=device)
+
+
+def new_paged_cache(cfg: LlamaConfig, num_pages: int, page_size: int,
+                    batch: int, device="cuda") -> PagedKVCache:
+    """An empty bf16 page arena for this config (`ops/paged.py` layout)."""
+    return init_paged_cache(cfg.num_hidden_layers, num_pages, page_size,
+                            cfg.num_key_value_heads, cfg.hd, batch,
+                            device=device)

@@ -14,6 +14,7 @@ LAUNCHES: Dict[str, int] = {
     "dequant_gemm": 0,
     "decode_attention": 0,
     "prefill_attention": 0,
+    "paged_decode_attention": 0,
 }
 
 

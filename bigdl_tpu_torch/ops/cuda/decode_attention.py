@@ -2,7 +2,8 @@
 
 Counterpart of ``bigdl_tpu/ops/pallas/decode_attention.py``
 (``decode_attention_pallas``, bf16 cache). Source:
-``csrc/decode_attention.cu``.
+``csrc/decode_attention.cu``, whose body (``csrc/decode_attention.cuh``)
+B5 shares.
 """
 
 from __future__ import annotations

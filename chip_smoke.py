@@ -7,10 +7,12 @@ Phases, all of them on every run, each printing one JSON line:
 1. device: name and power limit (nvidia-smi); fails without CUDA.
 2. build: nvcc builds every kernel from ``bigdl_tpu_torch/csrc``.
 3. kernels: each hand-written kernel (B1 dequant GEMV, B2 dequant GEMM,
-   B3 decode attention, B4 prefill attention) against its plain PyTorch
-   version on the card, at Llama-2-7B shapes, with times of the kernel,
-   the plain version and one PyTorch library call, and the least time the
-   card could take (bytes / 3.35 TB/s or flops / 989 TFLOP/s).
+   B3 decode attention, B4 prefill attention, B5 paged decode attention)
+   against its plain PyTorch version on the card, at Llama-2-7B shapes,
+   with times of the kernel, the plain version and a PyTorch library
+   yardstick, and the least time the card could take (bytes / 3.35 TB/s
+   or flops / 989 TFLOP/s). B5 must also equal B3 bit for bit on the same
+   rows laid out densely.
 4. reference: a 2-layer cut of the full-width model, prefill + one decode
    step on the card (kernels) against the same on the CPU (plain).
 5. engine: seeded full-width Llama-2-7B, sym_int4 linears, merged
@@ -20,6 +22,14 @@ Phases, all of them on every run, each printing one JSON line:
    and every kernel's launch count must rise during the run. A last pass
    of the same requests profiles a few pure-decode steps (device time by
    kernel group, launches, idle share).
+6. engine_paged: the same eight requests through the paged engine
+   (kv_page_size 128, sharing off), then four requests sharing a
+   1024-token prefix with radix sharing on: greedy and seeded streams must
+   equal the slab engine's, and B5 must launch.
+7. prefix_burst: 32 requests of one 1024-token prefix plus one unique
+   token in a 129-page arena (the bytes of the 8-slot slab) at max_batch
+   32: all 32 must be active at once, the radix must hit 31 times, the
+   pool must never run dry, and copy-on-write must copy.
 
 Then a ``kernels`` summary line, the card's name and power limit, and the
 final ``{"ok": true, "device": ...}`` line. Any failed check exits non-zero
@@ -62,6 +72,9 @@ KERNELS = {
     "prefill_attention": dict(
         source="bigdl_tpu_torch/csrc/prefill_attention.cu",
         replaces="bigdl_tpu/ops/pallas/prefill_attention.py:194"),
+    "paged_decode_attention": dict(
+        source="bigdl_tpu_torch/csrc/paged_decode_attention.cu",
+        replaces="bigdl_tpu/ops/pallas/paged_decode_attention.py:129"),
 }
 
 
@@ -254,6 +267,72 @@ def _attn_case(timer, randn, name, b, sq, h, hkv, hd, s, pos_list, timed):
     return rec
 
 
+def _paged_case(timer, randn, gen, b, h, hkv, hd, ps, np_, pos_list, timed):
+    """B5 against its plain version over a random page permutation, and
+    against B3 over the same rows gathered densely (must be bit-equal).
+    The last row is idle: an all-null table row, pos past NP * ps."""
+    import torch.nn.functional as F
+
+    from bigdl_tpu_torch.ops.cuda.decode_attention import decode_attention
+    from bigdl_tpu_torch.ops.cuda.paged_decode_attention import (
+        paged_decode_attention, plain_paged_attention)
+    from bigdl_tpu_torch.ops.paged import _gather_dense
+
+    dev = gen.device
+    p_ = b * np_ + 1
+    q = randn(b, 1, h, hd).to(torch.bfloat16)
+    ak = randn(p_, ps, hkv, hd).to(torch.bfloat16)
+    av = randn(p_, ps, hkv, hd).to(torch.bfloat16)
+    perm = torch.randperm(p_ - 1, generator=gen, device=dev) + 1
+    bt = perm[:b * np_].reshape(b, np_).to(torch.int32).contiguous()
+    bt[-1] = 0
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+    scale = hd ** -0.5
+    got = paged_decode_attention(q, ak, av, bt, pos, scale)
+    want = plain_paged_attention(q, ak, av, bt, pos, scale)
+    kd = _gather_dense(ak, bt).contiguous()
+    vd = _gather_dense(av, bt).contiguous()
+    b3 = decode_attention(q, kd, vd, pos, scale)
+    torch.cuda.synchronize()
+    s = np_ * ps
+    vis = [min(p + 1, s) for p in pos_list]
+    nbytes = (2 * q.numel() * 2 + sum(vis) * hkv * hd * 2 * 2
+              + bt.numel() * 4 + pos.numel() * 4)
+    b_ms, b_by = bound_ms(nbytes, 4.0 * hd * h * sum(vis))
+    rec = {"kernel": "paged_decode_attention", "B": b, "H": h, "Hkv": hkv,
+           "hd": hd, "ps": ps, "NP": np_, "P": p_, "pos": pos_list,
+           "max_abs_err": max_err(got, want), "tol": ATTN_TOL,
+           "equal_to_b3": bool(torch.equal(got, b3)),
+           "ok": allclose(got, want, ATTN_TOL) and bool(torch.equal(got,
+                                                                     b3)),
+           "bound_ms": b_ms, "bound_by": b_by}
+    if timed:
+        kid = torch.arange(s, device=dev)
+        mask = (kid[None, :] <= pos[:, None].long())[:, None, None, :]
+        qt = q.transpose(1, 2)
+
+        def library():
+            # two calls: the dense gather, then one SDPA
+            kg = _gather_dense(ak, bt).transpose(1, 2)
+            vg = _gather_dense(av, bt).transpose(1, 2)
+            return F.scaled_dot_product_attention(qt, kg, vg,
+                                                  attn_mask=mask,
+                                                  enable_gqa=(h != hkv))
+
+        try:
+            library()
+        except TypeError:       # a torch without enable_gqa: no yardstick
+            library = None
+        rec.update(
+            ms=timer.ms(lambda: paged_decode_attention(q, ak, av, bt, pos,
+                                                       scale)),
+            b3_ms=timer.ms(lambda: decode_attention(q, kd, vd, pos, scale)),
+            plain_ms=timer.ms(lambda: plain_paged_attention(
+                q, ak, av, bt, pos, scale)),
+            library_ms=timer.ms(library) if library else None)
+    return rec
+
+
 def phase_kernels(timer):
     from bigdl_tpu_torch.ops.cuda.dequant_matmul import (dequant_gemm,
                                                          dequant_gemv)
@@ -321,6 +400,23 @@ def phase_kernels(timer):
                       False))
     for case in cases:
         rec = _attn_case(timer, randn, *case)
+        records.append(rec)
+        emit({"phase": "kernels", **rec})
+
+    # B5: paged decode over a 128-row-page arena, Llama-2-7B heads, NP 16
+    # (max_seq 2048); the last row idle. Checked only at the other head
+    # dims and page sizes.
+    for b, h, hkv in ((8, 32, 32), (8, 32, 8), (32, 32, 32)):
+        pos_list = [int(p) for p in rng.integers(1, 2048, b)]
+        pos_list[0] = 2047
+        pos_list[-1] = 2048 + 37
+        rec = _paged_case(timer, randn, gen, b, h, hkv, 128, 128, 16,
+                          pos_list, True)
+        records.append(rec)
+        emit({"phase": "kernels", **rec})
+    for hd, ps in ((64, 128), (256, 256)):
+        rec = _paged_case(timer, randn, gen, 4, 8, 2, hd, ps, 2,
+                          [2 * ps - 1, 3, ps + 2, 2 * ps + 5], False)
         records.append(rec)
         emit({"phase": "kernels", **rec})
 
@@ -404,6 +500,7 @@ def _run_requests(eng, requests):
     toks = {rid: [] for rid, _, _ in requests}
     reasons, ttft = {}, {}
     decode_s, decode_tokens, decode_steps, steps = 0.0, 0, 0, 0
+    peak = 0
     while eng.has_unfinished():
         pure = eng._admitting is None and not eng.waiting
         n_active = sum(s.active for s in eng.slots)
@@ -412,6 +509,7 @@ def _run_requests(eng, requests):
         torch.cuda.synchronize()
         te = time.perf_counter()
         steps += 1
+        peak = max(peak, sum(s.active for s in eng.slots))
         if pure and n_active:
             decode_s += te - ts
             decode_tokens += n_active
@@ -426,7 +524,7 @@ def _run_requests(eng, requests):
         require(steps < 10000, "engine did not finish")
     wall = time.perf_counter() - t0
     return toks, reasons, ttft, {
-        "wall_s": wall, "steps": steps,
+        "wall_s": wall, "steps": steps, "peak_active": peak,
         "decode_tokens_per_s": decode_tokens / decode_s if decode_s else None,
         "decode_steps": decode_steps,
         "decode_step_ms": 1e3 * decode_s / decode_steps if decode_steps
@@ -512,11 +610,8 @@ def _profile_decode(eng, requests, steps=4):
     return out
 
 
-def phase_engine(params, cfg, max_new=32):
-    from bigdl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
-    from bigdl_tpu_torch.serving.engine import (EngineConfig, LLMEngine,
-                                                SamplingParams)
-    from bigdl_tpu_torch.utils.testing import SyntheticCausalLM
+def _engine_requests(cfg, max_new):
+    from bigdl_tpu_torch.serving.engine import SamplingParams
 
     rng = np.random.default_rng(11)
     # prompt lengths cover every route: <=32 (B1, plain attention),
@@ -533,6 +628,32 @@ def phase_engine(params, cfg, max_new=32):
         else:
             sp = SamplingParams(max_tokens=max_new)
         requests.append((f"r{i}", prompt, sp))
+    return lens, requests
+
+
+def _shared_prefix_requests(cfg, max_new):
+    """Four requests of one 1024-token prefix (eight full pages at ps 128)
+    and tails of 1, 5, 40 and 130 tokens; two greedy, two seeded."""
+    from bigdl_tpu_torch.serving.engine import SamplingParams
+
+    rng = np.random.default_rng(12)
+    pre = rng.integers(0, cfg.vocab_size, 1024).tolist()
+    out = []
+    for i, n in enumerate((1, 5, 40, 130)):
+        tail = rng.integers(0, cfg.vocab_size, n).tolist()
+        sp = (SamplingParams(max_tokens=max_new) if i % 2 == 0 else
+              SamplingParams(max_tokens=max_new, temperature=0.9, top_k=50,
+                             seed=77 + i))
+        out.append((f"s{i}", pre + tail, sp))
+    return out
+
+
+def phase_engine(params, cfg, max_new=32):
+    from bigdl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from bigdl_tpu_torch.serving.engine import EngineConfig, LLMEngine
+    from bigdl_tpu_torch.utils.testing import SyntheticCausalLM
+
+    lens, requests = _engine_requests(cfg, max_new)
     model = SyntheticCausalLM(params, cfg)
     ecfg = EngineConfig(max_batch=8, max_seq=2048)
     eng = LLMEngine(model, ecfg, device="cuda")
@@ -567,9 +688,116 @@ def phase_engine(params, cfg, max_new=32):
     require(in_vocab, "token outside the vocabulary")
     require(greedy_same, "greedy requests did not repeat")
     require(seeded_same, "seeded requests did not repeat")
-    missing = [k for k, v in counts.items() if v <= 0]
+    missing = [k for k, v in counts.items()
+               if v <= 0 and k != "paged_decode_attention"]
     require(not missing, f"kernels never launched on the main path: "
             f"{missing}")
+    shared = _shared_prefix_requests(cfg, max_new)
+    toks3, _, _, _ = _run_requests(eng, shared)
+    return counts, toks1, toks3
+
+
+def phase_engine_paged(params, cfg, slab_toks, slab_shared, max_new=32):
+    """The engine phase's requests through the paged engine (sharing
+    off), then the shared-prefix requests with radix sharing on: every
+    stream must equal the slab engine's. Counts are reset before each
+    run and read after it."""
+    from bigdl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from bigdl_tpu_torch.serving.engine import EngineConfig, LLMEngine
+    from bigdl_tpu_torch.utils.testing import SyntheticCausalLM
+
+    model = SyntheticCausalLM(params, cfg)
+    total = {}
+    for name, sharing, requests, want in (
+            ("paged", "off", _engine_requests(cfg, max_new)[1], slab_toks),
+            ("paged_shared_prefix", "on",
+             _shared_prefix_requests(cfg, max_new), slab_shared)):
+        eng = LLMEngine(model, EngineConfig(
+            max_batch=8, max_seq=2048, kv_page_size=128,
+            prefix_sharing=sharing), device="cuda")
+        reset_launch_counts()
+        toks, reasons, ttft, perf = _run_requests(eng, requests)
+        counts = launch_counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        snap = eng._paged_snapshot()
+        same = {r: toks[r] == want[r] for r, _, _ in requests}
+        res = {"phase": "engine_paged", "run": name, "prefix_sharing":
+               sharing, "requests": len(requests),
+               "prompt_lens": [len(p) for _, p, _ in requests],
+               "launches": counts, "finish_reasons": reasons,
+               "ttft_s": ttft, **perf, "paged": snap,
+               "equal_to_slab": same,
+               "tokens": {r: toks[r][:8] for r, _, _ in requests}}
+        emit(res)
+        require(all(reasons.get(r) in ("length", "stop")
+                    for r, _, _ in requests), f"{name}: not every request "
+                f"finished: {reasons}")
+        require(all(same.values()), f"{name}: streams differ from the slab "
+                f"engine's: {same}")
+        require(counts["paged_decode_attention"] > 0,
+                f"{name}: paged decode attention never launched")
+        require(snap["pool_exhausted_total"] == 0, f"{name}: pool ran dry")
+        if sharing == "on":
+            require(snap["radix"]["hits"] == len(requests) - 1,
+                    f"{name}: radix hits {snap['radix']}")
+        del eng
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_prefix_burst(params, cfg, n=32, max_new=64):
+    """32 requests of one 1024-token prefix plus a unique token, in a
+    129-page arena: the bytes of the 8-slot slab (8 x 16 pages + the null
+    page). Without sharing they would need 32 x 9 = 288 pages. Each
+    request runs 64 new tokens: admission takes one request per step, so
+    with fewer the first request would finish before the last is
+    admitted."""
+    from bigdl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from bigdl_tpu_torch.ops.paged import paged_cache_nbytes
+    from bigdl_tpu_torch.serving.engine import (EngineConfig, LLMEngine,
+                                                SamplingParams)
+    from bigdl_tpu_torch.utils.testing import SyntheticCausalLM
+
+    rng = np.random.default_rng(13)
+    pre = rng.integers(0, cfg.vocab_size, 1024).tolist()
+    requests = [(f"b{i}", pre + [int(t)], SamplingParams(max_tokens=max_new))
+                for i, t in enumerate(rng.choice(cfg.vocab_size, n,
+                                                 replace=False))]
+    eng = LLMEngine(SyntheticCausalLM(params, cfg), EngineConfig(
+        max_batch=n, max_seq=2048, kv_page_size=128, kv_pages=129,
+        prefix_sharing="on"), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    toks, reasons, _, perf = _run_requests(eng, requests)
+    counts = launch_counts()
+    snap = eng._paged_snapshot()
+    hkv, hd, layers = cfg.num_key_value_heads, cfg.hd, cfg.num_hidden_layers
+    res = {"phase": "prefix_burst", "requests": n, "prefix": 1024,
+           "max_new_tokens": max_new, "max_batch": n, "kv_pages": 129,
+           "launches": counts, **perf,
+           "paged": snap, "arena_bytes": paged_cache_nbytes(
+               layers, 129, 128, hkv, hd)["total"],
+           "slab_bytes_8_slots": paged_cache_nbytes(
+               layers, 8, 2048, hkv, hd)["total"],
+           "slab_bytes_32_slots": paged_cache_nbytes(
+               layers, n, 2048, hkv, hd)["total"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "finish_reasons": sorted(set(reasons.values()))}
+    emit(res)
+    require(all(reasons.get(r) in ("length", "stop") for r, _, _ in requests),
+            "burst: not every request finished")
+    require(all(len(toks[r]) == max_new for r, _, _ in requests),
+            "burst: a request produced the wrong number of tokens")
+    require(perf["peak_active"] == n,
+            f"burst: only {perf['peak_active']} of {n} active at once")
+    require(snap["radix"]["hits"] == n - 1
+            and snap["radix"]["hit_tokens"] == (n - 1) * 1024,
+            f"burst: radix {snap['radix']}")
+    require(snap["pool_exhausted_total"] == 0, "burst: pool ran dry")
+    require(snap["cow_pages_total"] > 0, "burst: no copy-on-write")
+    require(counts["paged_decode_attention"] > 0,
+            "burst: paged decode attention never launched")
     return counts
 
 
@@ -581,6 +809,7 @@ def summary(records, counts):
         "dequant_gemm": dict(M=128, linear="gate_up_proj"),
         "decode_attention": dict(Hkv=32, hd=128),
         "prefill_attention": dict(Sq=256, S=2048),
+        "paged_decode_attention": dict(B=8, Hkv=32, hd=128),
     }
     out = []
     for name, meta in KERNELS.items():
@@ -594,10 +823,11 @@ def summary(records, counts):
                     "bound_ms": main["bound_ms"],
                     "bound_by": main["bound_by"],
                     "library_ms": main["library_ms"],
-                    **{k: main[k] for k in ("matmul_only_ms",) if k in main},
+                    **{k: main[k] for k in ("matmul_only_ms", "b3_ms")
+                       if k in main},
                     "case": {k: main[k] for k in main if k in (
                         "M", "K", "N", "B", "H", "Hkv", "hd", "S", "Sq",
-                        "pos")}})
+                        "ps", "NP", "pos")}})
     emit({"kernels": out})
 
 
@@ -622,7 +852,12 @@ def main() -> int:
               "build_s": time.perf_counter() - t0,
               "memory_allocated": torch.cuda.memory_allocated()})
         phase_reference(params, cfg)
-        counts = phase_engine(params, cfg)
+        counts, slab_toks, slab_shared = phase_engine(params, cfg)
+        # main-path launches: each path's run, counted from 0
+        for more in (phase_engine_paged(params, cfg, slab_toks, slab_shared),
+                     phase_prefix_burst(params, cfg)):
+            for k, v in more.items():
+                counts[k] = counts.get(k, 0) + v
         summary(records, counts)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)

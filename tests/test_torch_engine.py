@@ -6,8 +6,8 @@ Both packages compute on the same bytes: the JAX package's random
 sym_int4 params are carried across by bridge.py. Forward logits agree
 within 3e-2; greedy token streams from the port's ``LLMEngine`` equal
 those of ``bigdl_tpu.serving.engine.LLMEngine`` for prompts of 5, 40 and
-130 tokens; seeded sampling repeats and respects top-k / top-p (its bits
-differ from the JAX sampler's by design).
+130 tokens; seeded sampling repeats and respects top-k / top-p (its
+streams equal the JAX engine's: tests/test_torch_sampling.py).
 """
 
 import dataclasses

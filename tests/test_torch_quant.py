@@ -142,6 +142,10 @@ def test_port_never_imports_jax_or_the_jax_package():
     bad = []
     files = list(_port_sources())
     assert len(files) > 10
+    rel = {os.path.relpath(f, REPO) for f in files}
+    assert {"bigdl_tpu_torch/ops/paged.py", "bigdl_tpu_torch/ops/random.py",
+            "bigdl_tpu_torch/serving/pagepool.py",
+            "bigdl_tpu_torch/ops/cuda/paged_decode_attention.py"} <= rel
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
