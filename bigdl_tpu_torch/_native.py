@@ -23,7 +23,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 SOURCES = ("dequant_gemv", "dequant_gemm", "decode_attention",
-           "prefill_attention", "paged_decode_attention")
+           "prefill_attention", "paged_decode_attention", "moe_dispatch")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-lineinfo", "-shared",
                            "-Xcompiler", "-fPIC"]
@@ -31,6 +31,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-lineinfo", "-shared",
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
 _c_float = ctypes.c_float
+_c_int64 = ctypes.c_longlong
 
 # C entry points of each library: the launch (returns a cudaError_t) first
 SIGNATURES = {
@@ -49,6 +50,10 @@ SIGNATURES = {
     "paged_decode_attention": {
         "bigdl_paged_decode_attention": [_c_void_p] * 7 + [_c_int] * 7
         + [_c_float, _c_void_p]},
+    "moe_dispatch": {
+        "bigdl_ragged_expert_matmul": [_c_void_p] * 9 + [_c_int] * 6
+        + [_c_int64] * 2 + [_c_int] * 2 + [_c_void_p],
+        "bigdl_moe_dispatch_blocks_per_sm": [_c_int] * 3},
 }
 
 _lock = threading.Lock()

@@ -14,6 +14,13 @@ Only the knobs the serving path reads:
   engine's paged KV mode, read when an ``EngineConfig`` field is None
   (``kv_page_size`` / ``kv_pages`` / ``prefix_sharing`` of the JAX
   package, ``bigdl_tpu/config.py``).
+- ``BIGDL_TPU_TORCH_MOE_DISPATCH`` (default ``auto``): how a sparse-MoE
+  MLP combines its experts when more token-choices arrive than there are
+  experts (fewer always gather the chosen experts). ``auto`` runs the
+  ragged dispatch (kernel B6) on the card and the dense one-hot combine on
+  the CPU; ``ragged`` forces the ragged dispatch (on the CPU through B6's
+  plain version); ``dense`` forces the dense combine (``moe_dispatch`` in
+  the JAX package).
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import os
 MATMUL_MAX_M_CEILING = 128
 
 _TRISTATE = ("auto", "on", "off")
+MOE_DISPATCH_MODES = ("auto", "ragged", "dense")
 
 
 def resolve_kv_page_size(spec) -> int:
@@ -71,6 +79,7 @@ class Flags:
     kv_page_size: int = 0
     kv_pages: int = 0
     prefix_sharing: str = "auto"
+    moe_dispatch: str = "auto"
 
 
 def flags() -> Flags:
@@ -83,6 +92,10 @@ def flags() -> Flags:
     if not 0 <= max_m <= MATMUL_MAX_M_CEILING:
         raise ValueError(f"BIGDL_TPU_TORCH_MATMUL_MAX_M must be in "
                          f"[0, {MATMUL_MAX_M_CEILING}], got {max_m}")
+    moe = os.environ.get("BIGDL_TPU_TORCH_MOE_DISPATCH", "auto")
+    if moe not in MOE_DISPATCH_MODES:
+        raise ValueError(f"BIGDL_TPU_TORCH_MOE_DISPATCH must be one of "
+                         f"{MOE_DISPATCH_MODES}, got {moe!r}")
     env = os.environ.get
     return Flags(
         matmul_max_m=max_m, attention_backend=be,
@@ -90,4 +103,5 @@ def flags() -> Flags:
             env("BIGDL_TPU_TORCH_KV_PAGE_SIZE", "0")),
         kv_pages=resolve_kv_pages(env("BIGDL_TPU_TORCH_KV_PAGES", "0")),
         prefix_sharing=resolve_prefix_sharing(
-            env("BIGDL_TPU_TORCH_PREFIX_SHARING", "auto")))
+            env("BIGDL_TPU_TORCH_PREFIX_SHARING", "auto")),
+        moe_dispatch=moe)

@@ -1,5 +1,6 @@
-// Tensor-core dequant matmul shared by B1 (dequant_gemv.cu, M <= 32) and
-// B2 (dequant_gemm.cu, 32 < M <= 128): y[M, N] = x[M, Kp] . W[Kp, N] over
+// Tensor-core dequant matmul shared by B1 (dequant_gemv.cu, M <= 32), B2
+// (dequant_gemm.cu, 32 < M <= 128) and B6 (moe_dispatch.cu, one 128-row
+// token tile per expert): y[M, N] = x[M, Kp] . W[Kp, N] over
 // block-quantized W, with mma.sync m16n8k16 (bf16 in, f32 accumulate).
 //
 // The weights are never staged in shared memory. Each thread loads packed
@@ -26,6 +27,13 @@
 // (gridDim.y); every split then writes f32 partial sums to a workspace
 // that a second pass adds in split order, so results do not vary from
 // run to run. With one split the kernel writes bf16 y directly.
+//
+// B6 runs the same body with a ragged weight address (`RAGGED`): block z
+// takes 128-row tile z of x, whose weight is expert tile_expert[z] of an
+// [E, ...] stack, and whose real rows are a prefix of tile_rows[z] rows
+// (the rest are zeros): m-tiles past them are neither staged nor
+// multiplied, a tile with no real row loads no weight, and both write
+// zeros, which is what the product of zero rows is.
 #pragma once
 
 #include "common.cuh"
@@ -36,9 +44,25 @@ enum WeightKind : int {
     KIND_ASYM4 = 1,      // c * s + z
     KIND_CODEBOOK4 = 2,  // lut[c] * s
     KIND_SYM8 = 3,       // c * s, int8 codes
+    KIND_BF16 = 4,       // dense bf16 weights (B6's dense body only)
 };
 
+// kinds whose packed rows are K rows (16 a unit), not nibble pairs
+__host__ __device__ constexpr bool row_units(int kind) {
+    return kind == KIND_SYM8 || kind == KIND_BF16;
+}
+
 namespace dqmma {
+
+// B6's per-tile weight address: tile z multiplies by expert
+// tile_expert[z] of an [E, ...] stack of planes.
+struct RaggedArgs {
+    const int* tile_expert;   // [tiles] expert of each tile
+    const int* tile_rows;     // [tiles] real rows of each tile
+    long long data_es;        // expert stride of the data plane (bytes)
+    long long scale_es;       // expert stride of the scale/zero planes
+    int num_experts;
+};
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -93,11 +117,13 @@ __device__ __forceinline__ void ldg_words(const void* p, uint32_t* out) {
 
 // A chunk's packed words and scales for one thread, which owns 4 * CW
 // adjacent columns. A unit is 16 packed rows: two k steps for 4-bit codes
-// (low, then high nibbles), one for int8.
+// (low, then high nibbles), one for int8 and bf16. A bf16 row of 4 * CW
+// columns is 2 * CW words.
 template <int KIND, int CW>
 struct Words {
-    static constexpr int kUnits = KIND == KIND_SYM8 ? 4 : 2;
-    uint32_t w[kUnits][4][CW];              // rows 2t, 2t+1, 2t+8, 2t+9
+    static constexpr int kUnits = row_units(KIND) ? 4 : 2;
+    static constexpr int kRowWords = KIND == KIND_BF16 ? 2 * CW : CW;
+    uint32_t w[kUnits][4][kRowWords];       // rows 2t, 2t+1, 2t+8, 2t+9
     uint32_t s[kUnits][2 * CW];             // bf16 scales, 2 columns a word
     uint32_t z[kUnits][2 * CW];             // bf16 zeros (asym)
 };
@@ -111,7 +137,8 @@ __device__ __forceinline__ void load_chunk(Words<KIND, CW>& f,
                                            const uint16_t* __restrict__ zero,
                                            int k0, int klen, int N, int ncol,
                                            bool col_ok, int block, int t) {
-    constexpr bool kInt8 = KIND == KIND_SYM8;
+    constexpr bool kInt8 = row_units(KIND);
+    constexpr int kRowWords = Words<KIND, CW>::kRowWords;
     const int half = block >> 1;
 #pragma unroll
     for (int u = 0; u < Words<KIND, CW>::kUnits; ++u) {
@@ -122,9 +149,14 @@ __device__ __forceinline__ void load_chunk(Words<KIND, CW>& f,
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
                 const int row = p + 2 * t + (i & 1) + 8 * (i >> 1);
-                ldg_words<CW>(data + (size_t)row * N + ncol, f.w[u][i]);
+                // bf16 rows are 2 bytes a column
+                ldg_words<kRowWords>(
+                    data + ((size_t)row * N + ncol) * (kRowWords / CW),
+                    f.w[u][i]);
             }
-            ldg_words<2 * CW>(scale + (size_t)gb * N + ncol, f.s[u]);
+            if (KIND != KIND_BF16) {
+                ldg_words<2 * CW>(scale + (size_t)gb * N + ncol, f.s[u]);
+            }
             if (KIND == KIND_ASYM4) {
                 ldg_words<2 * CW>(zero + (size_t)gb * N + ncol, f.z[u]);
             }
@@ -132,7 +164,7 @@ __device__ __forceinline__ void load_chunk(Words<KIND, CW>& f,
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
 #pragma unroll
-                for (int c = 0; c < CW; ++c) f.w[u][i][c] = 0u;
+                for (int c = 0; c < kRowWords; ++c) f.w[u][i][c] = 0u;
             }
 #pragma unroll
             for (int c = 0; c < 2 * CW; ++c) {
@@ -181,7 +213,17 @@ __device__ __forceinline__ void dequant_step(const Words<KIND, CW>& f,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
             const uint32_t sw = f.s[u][2 * c + (j >> 1)];
-            if (KIND == KIND_SYM4) {
+            if (KIND == KIND_BF16) {
+                // column 4c + j is half (j & 1) of word 2c + (j >> 1) of a
+                // row: pair rows 2t and 2t+1 (and 2t+8, 2t+9) as they are
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    bf[4 * c + j][r] = __byte_perm(
+                        f.w[u][2 * r][2 * c + (j >> 1)],
+                        f.w[u][2 * r + 1][2 * c + (j >> 1)],
+                        (j & 1) ? 0x7632 : 0x5410);
+                }
+            } else if (KIND == KIND_SYM4) {
                 // (0x4300 | q) is the bf16 value 128 + q; fma(v, 1, -136)
                 // is q - 8 exactly, fma(q - 8, s, -0) rounds the exact
                 // product once
@@ -221,13 +263,16 @@ __device__ __forceinline__ void dequant_step(const Words<KIND, CW>& f,
 }
 
 // One k step: the NT n-tiles' B fragments against the MT m-tiles of the
-// 16-wide x slice starting at column kc of xs.
-template <int MT, int NT>
+// 16-wide x slice starting at column kc of xs (with RAGGED, only the first
+// mt_live m-tiles: the others hold zero rows).
+template <int MT, int NT, bool RAGGED>
 __device__ __forceinline__ void mma_step(float (*acc)[NT][4],
                                          const uint16_t (*xs)[kLd], int kc,
-                                         uint32_t (*bf)[2], int lane) {
+                                         uint32_t (*bf)[2], int lane,
+                                         int mt_live) {
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
+        if (RAGGED && mt >= mt_live) continue;
         uint32_t a[4];
         ldmatrix_x4(a, &xs[mt * 16 + (lane & 15)][kc + (lane >> 4) * 8]);
 #pragma unroll
@@ -237,22 +282,42 @@ __device__ __forceinline__ void mma_step(float (*acc)[NT][4],
     }
 }
 
-// MT m-tiles of 16 rows; CW words (4 * CW columns) per thread per packed
-// row; STAGES chunks of 64 K in the pipeline.
-template <int MT, int CW, int STAGES, int KIND>
-__global__ void __launch_bounds__(kThreads)
-dequant_mma_kernel(const uint16_t* __restrict__ x,       // [M, Kp] bf16
-                   const uint8_t* __restrict__ data,     // [Kp/2, N] | [Kp, N]
-                   const uint16_t* __restrict__ scale,   // [Kp/B, N] bf16
-                   const uint16_t* __restrict__ zero,    // [Kp/B, N] (asym)
-                   const float* __restrict__ lut_g,      // [16] (codebook)
-                   float* __restrict__ ws,               // [split, M, N] f32
-                   uint16_t* __restrict__ y,             // [M, N] bf16
-                   int M, int Kp, int N, int block, int chunks_per_split) {
+// The kernel body. MT m-tiles of 16 rows; CW words (4 * CW columns) per
+// thread per packed row; STAGES chunks of 64 K in the pipeline. With
+// RAGGED, M is the height of the whole row buffer and block z computes its
+// tile z (rows [128 z, 128 z + 128), MT == 8) against its expert.
+template <int MT, int CW, int STAGES, int KIND, bool RAGGED>
+__device__ __forceinline__ void
+dequant_mma_body(const uint16_t* __restrict__ x,       // [M, Kp] bf16
+                 const uint8_t* __restrict__ data,     // [Kp/2, N] | [Kp, N]
+                 const uint16_t* __restrict__ scale,   // [Kp/B, N] bf16
+                 const uint16_t* __restrict__ zero,    // [Kp/B, N] (asym)
+                 const float* __restrict__ lut_g,      // [16] (codebook)
+                 float* __restrict__ ws,               // [split, M, N] f32
+                 uint16_t* __restrict__ y,             // [M, N] bf16
+                 int M, int Kp, int N, int block, int chunks_per_split,
+                 const RaggedArgs& ra) {
     constexpr int NT = 4 * CW;             // 8-column mma tiles per warp
     constexpr int kWarpCols = 8 * NT;
     __shared__ __align__(16) uint16_t xs[STAGES][MT * 16][kLd];
     __shared__ float lut[16];
+
+    // rows staged and multiplied (m_live) and written (m_out), from row0
+    int m_live = M, m_out = M, row0 = 0;
+    if (RAGGED) {
+        const int tile = blockIdx.z;
+        // an id outside [0, E) breaks the caller's contract; clamp it so no
+        // read leaves the stack
+        const int e = min(max(ra.tile_expert[tile], 0), ra.num_experts - 1);
+        data += (size_t)e * ra.data_es;
+        scale += (size_t)e * ra.scale_es;
+        if (KIND == KIND_ASYM4) zero += (size_t)e * ra.scale_es;
+        row0 = tile * MT * 16;
+        m_out = MT * 16;
+        m_live = min(max(ra.tile_rows[tile], 0), m_out);
+        x += (size_t)row0 * Kp;
+    }
+    const int mt_live = (m_live + 15) / 16;
 
     const int tid = threadIdx.x;
     const int warp = tid >> 5;
@@ -277,7 +342,10 @@ dequant_mma_kernel(const uint16_t* __restrict__ x,       // [M, Kp] bf16
 
     const int nchunks = (Kp + kChunk - 1) / kChunk;
     const int c_begin = blockIdx.y * chunks_per_split;
-    const int c_end = min(nchunks, c_begin + chunks_per_split);
+    // a ragged tile with no real row skips the K loop and writes zeros
+    const int c_end = (RAGGED && m_live == 0)
+                          ? c_begin
+                          : min(nchunks, c_begin + chunks_per_split);
 
     // Chunk c's words sit in ring[(c - c_begin) % STAGES] and its x in
     // xs[(c - c_begin) % STAGES]. The loop is unrolled by STAGES so every
@@ -288,7 +356,7 @@ dequant_mma_kernel(const uint16_t* __restrict__ x,       // [M, Kp] bf16
     for (int i = 0; i < STAGES - 1; ++i) {
         const int c = c_begin + i;
         if (c < c_end) {
-            stage_x<MT>(xs[i], x, M, Kp, c * kChunk, tid);
+            stage_x<MT>(xs[i], x, m_live, Kp, c * kChunk, tid);
             load_chunk<KIND, CW>(ring[i], data, scale, zero, c * kChunk,
                                  min(kChunk, Kp - c * kChunk), N, ncol,
                                  col_ok, block, t);
@@ -305,7 +373,7 @@ dequant_mma_kernel(const uint16_t* __restrict__ x,       // [M, Kp] bf16
             const int cn = c + STAGES - 1;
             const int sn = (i + STAGES - 1) % STAGES;
             if (cn < c_end) {
-                stage_x<MT>(xs[sn], x, M, Kp, cn * kChunk, tid);
+                stage_x<MT>(xs[sn], x, m_live, Kp, cn * kChunk, tid);
                 load_chunk<KIND, CW>(ring[sn], data, scale, zero,
                                      cn * kChunk,
                                      min(kChunk, Kp - cn * kChunk), N, ncol,
@@ -319,19 +387,22 @@ dequant_mma_kernel(const uint16_t* __restrict__ x,       // [M, Kp] bf16
 #pragma unroll
             for (int u = 0; u < Words<KIND, CW>::kUnits; ++u) {
                 uint32_t bf[NT][2];
-                if (KIND == KIND_SYM8) {
+                if (row_units(KIND)) {
                     if (16 * u < klen) {
                         dequant_step<KIND, CW>(ring[i], u, false, lut, bf);
-                        mma_step<MT, NT>(acc, xs[i], 16 * u, bf, lane);
+                        mma_step<MT, NT, RAGGED>(acc, xs[i], 16 * u, bf,
+                                                 lane, mt_live);
                     }
                 } else if (32 * u < klen) {
                     // the unit's 16 packed rows: k [kl, kl+16) and +half
                     const int blk = (16 * u) / half;
                     const int kl = blk * block + (16 * u - blk * half);
                     dequant_step<KIND, CW>(ring[i], u, false, lut, bf);
-                    mma_step<MT, NT>(acc, xs[i], kl, bf, lane);
+                    mma_step<MT, NT, RAGGED>(acc, xs[i], kl, bf, lane,
+                                             mt_live);
                     dequant_step<KIND, CW>(ring[i], u, true, lut, bf);
-                    mma_step<MT, NT>(acc, xs[i], kl + half, bf, lane);
+                    mma_step<MT, NT, RAGGED>(acc, xs[i], kl + half, bf, lane,
+                                             mt_live);
                 }
             }
             __syncthreads();               // xs[i] free for reuse
@@ -346,7 +417,7 @@ dequant_mma_kernel(const uint16_t* __restrict__ x,       // [M, Kp] bf16
 #pragma unroll
         for (int hrow = 0; hrow < 2; ++hrow) {
             const int row = mt * 16 + g + 8 * hrow;
-            if (row >= M) continue;
+            if (row >= m_out) continue;
 #pragma unroll
             for (int q = 0; q < 2; ++q) {
                 const int n = wcol + (2 * t + q) * 4 * CW;
@@ -361,11 +432,11 @@ dequant_mma_kernel(const uint16_t* __restrict__ x,       // [M, Kp] bf16
                         o.y = pack_bf16x2(acc[mt][4 * c + 2][e],
                                           acc[mt][4 * c + 3][e]);
                         *reinterpret_cast<uint2*>(
-                            y + (size_t)row * N + n + 4 * c) = o;
+                            y + ((size_t)row0 + row) * N + n + 4 * c) = o;
                     } else {
                         *reinterpret_cast<float4*>(
-                            ws + ((size_t)blockIdx.y * M + row) * N + n +
-                            4 * c) =
+                            ws + ((size_t)blockIdx.y * M + row0 + row) * N +
+                            n + 4 * c) =
                             make_float4(acc[mt][4 * c][e],
                                         acc[mt][4 * c + 1][e],
                                         acc[mt][4 * c + 2][e],
@@ -375,6 +446,36 @@ dequant_mma_kernel(const uint16_t* __restrict__ x,       // [M, Kp] bf16
             }
         }
     }
+}
+
+// B1 / B2: one weight, all M rows.
+template <int MT, int CW, int STAGES, int KIND>
+__global__ void __launch_bounds__(kThreads)
+dequant_mma_kernel(const uint16_t* __restrict__ x,
+                   const uint8_t* __restrict__ data,
+                   const uint16_t* __restrict__ scale,
+                   const uint16_t* __restrict__ zero,
+                   const float* __restrict__ lut_g, float* __restrict__ ws,
+                   uint16_t* __restrict__ y, int M, int Kp, int N, int block,
+                   int chunks_per_split) {
+    dequant_mma_body<MT, CW, STAGES, KIND, false>(
+        x, data, scale, zero, lut_g, ws, y, M, Kp, N, block,
+        chunks_per_split, RaggedArgs{});
+}
+
+// B6: one 128-row tile per block z, its expert's weight.
+template <int MT, int CW, int STAGES, int KIND>
+__global__ void __launch_bounds__(kThreads)
+ragged_mma_kernel(const uint16_t* __restrict__ x,
+                  const uint8_t* __restrict__ data,
+                  const uint16_t* __restrict__ scale,
+                  const uint16_t* __restrict__ zero,
+                  const float* __restrict__ lut_g, float* __restrict__ ws,
+                  uint16_t* __restrict__ y, int M, int Kp, int N, int block,
+                  int chunks_per_split, RaggedArgs ra) {
+    dequant_mma_body<MT, CW, STAGES, KIND, true>(
+        x, data, scale, zero, lut_g, ws, y, M, Kp, N, block,
+        chunks_per_split, ra);
 }
 
 // y = bf16(sum over splits of ws), summed in split order
@@ -387,34 +488,59 @@ __global__ void finalize_kernel(const float* __restrict__ ws,
     y[i] = f32_to_bf16(v);
 }
 
-template <int MT, int CW, int STAGES, int KIND>
+// One launch of the variant for weight kind KIND: B1/B2 over a grid of
+// column strips by K splits; B6 (RAGGED) adds one grid z per 128-row tile.
+template <int MT, int CW, int STAGES, int KIND, bool RAGGED>
 void launch_kind(const void* x, const void* data, const void* scale,
                  const void* zero, const void* lut, void* ws, void* y, int M,
                  int Kp, int N, int block, int split, int cps,
-                 cudaStream_t st) {
+                 const RaggedArgs& ra, cudaStream_t st) {
     constexpr int cols = kWarps * 32 * CW;
-    dim3 grid((N + cols - 1) / cols, split);
-    dequant_mma_kernel<MT, CW, STAGES, KIND><<<grid, kThreads, 0, st>>>(
-        (const uint16_t*)x, (const uint8_t*)data, (const uint16_t*)scale,
-        (const uint16_t*)zero, (const float*)lut, (float*)ws, (uint16_t*)y,
-        M, Kp, N, block, cps);
+    const int strips = (N + cols - 1) / cols;
+    if constexpr (RAGGED) {
+        ragged_mma_kernel<MT, CW, STAGES, KIND>
+            <<<dim3(strips, split, M / (MT * 16)), kThreads, 0, st>>>(
+                (const uint16_t*)x, (const uint8_t*)data,
+                (const uint16_t*)scale, (const uint16_t*)zero,
+                (const float*)lut, (float*)ws, (uint16_t*)y, M, Kp, N, block,
+                cps, ra);
+    } else {
+        dequant_mma_kernel<MT, CW, STAGES, KIND>
+            <<<dim3(strips, split), kThreads, 0, st>>>(
+                (const uint16_t*)x, (const uint8_t*)data,
+                (const uint16_t*)scale, (const uint16_t*)zero,
+                (const float*)lut, (float*)ws, (uint16_t*)y, M, Kp, N, block,
+                cps);
+    }
 }
 
 // Launch the kernel variant for weight kind `kind` (and the split-order
-// sum when split > 1). Returns the cudaError_t of the launches.
-template <int MT, int CW, int STAGES>
+// sum when split > 1); with RAGGED it is B6 over M / (16 MT) tiles.
+// Returns the cudaError_t of the launches.
+template <int MT, int CW, int STAGES, bool RAGGED = false>
 int launch(int kind, const void* x, const void* data, const void* scale,
            const void* zero, const void* lut, void* ws, void* y, int M,
-           int Kp, int N, int block, int split, int cps, cudaStream_t st) {
-#define BIGDL_DQ_KIND(K)                                                     \
-    case K:                                                                  \
-        launch_kind<MT, CW, STAGES, K>(x, data, scale, zero, lut, ws, y, M,  \
-                                       Kp, N, block, split, cps, st);        \
+           int Kp, int N, int block, int split, int cps, cudaStream_t st,
+           const RaggedArgs& ra = RaggedArgs{}) {
+#define BIGDL_DQ_KIND(K)                                                   \
+    case K:                                                                \
+        launch_kind<MT, CW, STAGES, K, RAGGED>(x, data, scale, zero, lut,  \
+                                               ws, y, M, Kp, N, block,     \
+                                               split, cps, ra, st);        \
         break;
     switch (kind) {
         BIGDL_DQ_KIND(KIND_SYM4)
         BIGDL_DQ_KIND(KIND_ASYM4)
         BIGDL_DQ_KIND(KIND_CODEBOOK4)
+        case KIND_BF16:
+            if constexpr (RAGGED) {
+                launch_kind<MT, CW, STAGES, KIND_BF16, RAGGED>(
+                    x, data, scale, zero, lut, ws, y, M, Kp, N, block, split,
+                    cps, ra, st);
+                break;
+            } else {
+                return (int)cudaErrorInvalidValue;
+            }
         default:
         BIGDL_DQ_KIND(KIND_SYM8)
     }
@@ -427,32 +553,40 @@ int launch(int kind, const void* x, const void* data, const void* scale,
     return (int)cudaGetLastError();
 }
 
-// Resident blocks per SM of the variant for `kind` (0 on error).
-template <int MT, int CW, int STAGES>
-int blocks_per_sm(int kind) {
+// Resident blocks per SM of the kernel for weight kind KIND (0 on error).
+template <int MT, int CW, int STAGES, int KIND, bool RAGGED>
+int occupancy() {
     int n = 0;
     cudaError_t e;
-    switch (kind) {
-        case KIND_SYM4:
-            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &n, dequant_mma_kernel<MT, CW, STAGES, KIND_SYM4>, kThreads, 0);
-            break;
-        case KIND_ASYM4:
-            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &n, dequant_mma_kernel<MT, CW, STAGES, KIND_ASYM4>, kThreads,
-                0);
-            break;
-        case KIND_CODEBOOK4:
-            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &n, dequant_mma_kernel<MT, CW, STAGES, KIND_CODEBOOK4>,
-                kThreads, 0);
-            break;
-        default:
-            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &n, dequant_mma_kernel<MT, CW, STAGES, KIND_SYM8>, kThreads, 0);
-            break;
+    if constexpr (RAGGED) {
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, ragged_mma_kernel<MT, CW, STAGES, KIND>, kThreads, 0);
+    } else {
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, dequant_mma_kernel<MT, CW, STAGES, KIND>, kThreads, 0);
     }
     return e == cudaSuccess ? n : 0;
+}
+
+// Resident blocks per SM of the variant for `kind` (0 on error).
+template <int MT, int CW, int STAGES, bool RAGGED = false>
+int blocks_per_sm(int kind) {
+    switch (kind) {
+        case KIND_SYM4:
+            return occupancy<MT, CW, STAGES, KIND_SYM4, RAGGED>();
+        case KIND_ASYM4:
+            return occupancy<MT, CW, STAGES, KIND_ASYM4, RAGGED>();
+        case KIND_CODEBOOK4:
+            return occupancy<MT, CW, STAGES, KIND_CODEBOOK4, RAGGED>();
+        case KIND_BF16:
+            if constexpr (RAGGED) {
+                return occupancy<MT, CW, STAGES, KIND_BF16, RAGGED>();
+            } else {
+                return 0;
+            }
+        default:
+            return occupancy<MT, CW, STAGES, KIND_SYM8, RAGGED>();
+    }
 }
 
 // The shape rules every launch needs (see the wrappers in
@@ -463,7 +597,7 @@ inline bool args_ok(int M, int Kp, int N, int block, int kind, int split,
     return M >= 1 && Kp >= block && N >= 4 && N % (4 * cw) == 0
            && block % 32 == 0
            && kChunk % block == 0 && Kp % block == 0 && kind >= 0
-           && kind <= 3 && split >= 1 && cps >= 1
+           && kind <= KIND_BF16 && split >= 1 && cps >= 1
            && (split - 1) * cps < nchunks && split * cps >= nchunks
            && (split == 1 || ws != nullptr);
 }

@@ -8,15 +8,19 @@ along a leading L axis::
      "layers": {"input_layernorm": [L, D], "post_attention_layernorm": [L, D],
                 "q_proj" | "k_proj" | "v_proj" | "o_proj" | "gate_proj" |
                 "up_proj" | "down_proj" (or merged "qkv_proj" /
-                "gate_up_proj"): stacked QTensor or dense},
+                "gate_up_proj"): stacked QTensor or dense,
+                sparse-MoE layers instead of the MLP projections:
+                "router": [L, D, E] dense, "experts_gate" | "experts_up":
+                [L, E, D, F] and "experts_down": [L, E, F, D] stacks},
      "norm": [D],
      "lm_head": [D, V] QTensor or dense (absent when tied)}
 
 A Python loop over layers stands in for ``lax.scan``. The slab KV cache and
 the paged arena (``forward_paged``, bf16) are updated in place. Config
 features outside the ported serving path (alibi, soft-caps, sliding
-windows, parallel or sandwich residuals, MoE, scaled rope) raise
-NotImplementedError.
+windows, parallel or sandwich residuals, scaled rope) raise
+NotImplementedError. A layer with a ``router`` runs the sparse-MoE MLP
+(``_moe_mlp``), whatever the config says, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,11 +31,13 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from bigdl_tpu_torch.config import flags
 from bigdl_tpu_torch.ops.attention import sdp_attention, sdp_attention_paged
 from bigdl_tpu_torch.ops.embedding import embedding_lookup
 from bigdl_tpu_torch.ops.kvcache import (KVCache, init_cache, read_layer,
                                          update_layer)
 from bigdl_tpu_torch.ops.matmul import linear
+from bigdl_tpu_torch.ops.moe_dispatch import moe_mlp_ragged
 from bigdl_tpu_torch.ops.norms import rms_norm
 from bigdl_tpu_torch.ops.paged import (PagedKVCache, init_paged_cache,
                                        paged_update_layer)
@@ -84,12 +90,45 @@ class LlamaConfig:
     def hd(self) -> int:
         return self.head_dim or self.hidden_size // self.num_attention_heads
 
+    @classmethod
+    def from_hf(cls, hf: Dict[str, Any]):
+        """Build from an HF config dict (config.json of llama, mistral,
+        ...), with the JAX package's field mapping."""
+        rs = hf.get("rope_scaling") or {}
+        factor, rs_tuple = 1.0, None
+        if rs:
+            rtype = rs.get("rope_type", rs.get("type", "linear"))
+            if rtype == "linear":
+                factor = float(rs.get("factor", 1.0))
+            elif rtype not in ("default", "none"):
+                rs_tuple = tuple(sorted(
+                    (k, v) for k, v in rs.items()
+                    if isinstance(v, (int, float, str))))
+        return cls(
+            vocab_size=hf["vocab_size"],
+            hidden_size=hf["hidden_size"],
+            intermediate_size=hf["intermediate_size"],
+            num_hidden_layers=hf["num_hidden_layers"],
+            num_attention_heads=hf["num_attention_heads"],
+            num_key_value_heads=hf.get(
+                "num_key_value_heads", hf["num_attention_heads"]),
+            head_dim=hf.get("head_dim"),
+            rms_norm_eps=hf.get("rms_norm_eps", 1e-5),
+            rope_theta=hf.get("rope_theta", 10000.0),
+            rope_scaling_factor=factor,
+            rope_scaling=rs_tuple,
+            max_position_embeddings=hf.get("max_position_embeddings", 4096),
+            tie_word_embeddings=hf.get("tie_word_embeddings", False),
+            attention_bias=hf.get("attention_bias", False),
+            mlp_bias=hf.get("mlp_bias", False),
+            sliding_window=hf.get("sliding_window"),
+        )
+
 
 _UNPORTED = (
     ("use_alibi", False), ("sliding_window", None), ("logits_soft_cap", None),
     ("attn_soft_cap", None), ("parallel_residual", False),
-    ("sandwich_norms", False), ("num_local_experts", 0),
-    ("rope_scaling", None), ("norm_type", "rmsnorm"),
+    ("sandwich_norms", False), ("rope_scaling", None), ("norm_type", "rmsnorm"),
     ("learned_positions", False), ("embed_norm", False),
     ("mlp_gated", True), ("hidden_act", "silu"), ("use_rope", True),
     ("alt_sliding_window", False), ("query_pre_attn_scalar", None),
@@ -180,7 +219,80 @@ def embed_prologue(params, cfg: LlamaConfig, tokens: torch.Tensor,
     return x
 
 
+def _route(xf: torch.Tensor, router: torch.Tensor, k: int):
+    """Router of a sparse-MoE layer: f32 logits of xf [N, D] against the
+    [D, E] router, the top-k experts of each row (ties to the lower expert
+    index, as lax.top_k: a stable sort) and their f32 softmax weights.
+    Returns (topi [N, k] int64, w [N, k] f32)."""
+    logits = torch.matmul(xf.to(torch.float32),
+                          router.to(xf.dtype).to(torch.float32))
+    topv, topi = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return topi[:, :k], torch.softmax(topv[:, :k], dim=-1)
+
+
+def _moe_mlp(hidden: torch.Tensor, lp, cfg: LlamaConfig) -> torch.Tensor:
+    """Sparse-MoE MLP (gated experts), the JAX ``_moe_mlp``: route each
+    token to its top-k experts, then one of three strategies, none of which
+    reads a routing tensor back to the host:
+
+    - gather (N * k <= E, e.g. a small decode step): each token-choice
+      takes its expert's planes on the device and runs the quantized
+      linears at M = 1 (B1 on the card); the k outputs, weighted in bf16,
+      are summed;
+    - ragged (``moe_dispatch`` ``ragged``, or ``auto`` off the CPU): the
+      sorted dispatch of ``ops/moe_dispatch.py`` through kernel B6;
+    - dense (``dense``, or ``auto`` on the CPU): every expert over every
+      token, combined by the one-hot routing weights.
+    """
+    if "experts_up_bias" in lp or "experts_down_bias" in lp:
+        raise NotImplementedError("bigdl_tpu_torch: biased expert stacks "
+                                  "are not ported")
+    b, t, d = hidden.shape
+    k, num_e = cfg.num_experts_per_tok, cfg.num_local_experts
+    xf = hidden.reshape(-1, d)
+    n = xf.shape[0]
+    topi, w = _route(xf, lp["router"], k)
+    gate_s, up_s, down_s = (lp["experts_gate"], lp["experts_up"],
+                            lp["experts_down"])
+
+    def one_expert(x_rows, gw, uw, dw):
+        return linear(F.silu(linear(x_rows, gw)) * linear(x_rows, uw), dw)
+
+    if n * k <= num_e:
+        ids = topi.reshape(-1)
+        gw, uw, dw = (s.take(ids) if isinstance(s, QTensor)
+                      else s.index_select(0, ids)
+                      for s in (gate_s, up_s, down_s))
+
+        def pick(s, j):
+            return s.index(j) if isinstance(s, QTensor) else s[j]
+
+        outs = torch.stack([
+            one_expert(xf[j // k][None], pick(gw, j), pick(uw, j),
+                       pick(dw, j))[0] for j in range(n * k)])
+        y = (outs.reshape(n, k, d) * w[..., None].to(outs.dtype)).sum(dim=1)
+        return y.reshape(b, t, d)
+
+    mode = flags().moe_dispatch
+    if mode == "ragged" or (mode == "auto" and xf.device.type != "cpu"):
+        y = moe_mlp_ragged(xf, topi, w, gate_s, up_s, down_s, F.silu, num_e)
+        return y.reshape(b, t, d)
+
+    combine = (F.one_hot(topi, num_e).to(torch.float32)
+               * w[..., None]).sum(dim=1)                       # [N, E]
+    all_out = torch.stack([
+        one_expert(xf, *(s.index(e) if isinstance(s, QTensor) else s[e]
+                         for s in (gate_s, up_s, down_s)))
+        for e in range(num_e)])                                 # [E, N, D]
+    y = torch.einsum("ne,end->nd",
+                     combine.to(hidden.dtype).to(torch.float32),
+                     all_out.to(torch.float32)).to(hidden.dtype)
+    return y.reshape(b, t, d)
+
+
 def _mlp(hidden: torch.Tensor, lp, cfg: LlamaConfig) -> torch.Tensor:
+    if "router" in lp:
+        return _moe_mlp(hidden, lp, cfg)
     if "gate_up_proj" in lp:
         gu = linear(hidden, lp["gate_up_proj"])
         f = gu.shape[-1] // 2
@@ -300,7 +412,7 @@ def forward_paged(params: Dict[str, Any], cfg: LlamaConfig,
 
 
 # this family's forward_paged threads block tables through its layers (the
-# JAX package's per-family flag; the port's engine serves this family only)
+# JAX package's per-family flag, read by the engine)
 SUPPORTS_PAGED_KV = True
 
 

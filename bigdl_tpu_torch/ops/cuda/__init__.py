@@ -15,6 +15,7 @@ LAUNCHES: Dict[str, int] = {
     "decode_attention": 0,
     "prefill_attention": 0,
     "paged_decode_attention": 0,
+    "ragged_expert_matmul": 0,
 }
 
 

@@ -141,10 +141,10 @@ def _cw(name: str, n: int) -> int:
 
 
 def _split_k(name: str, m: int, n: int, kp: int, kind: int, cw: int,
-             device) -> Tuple[int, int]:
+             device, tiles: int = 1) -> Tuple[int, int]:
     """(split, chunks per split): cut K (in 64-row chunks) into as many
-    splits as keep every block of the launch resident at once (one wave),
-    with no empty split."""
+    splits as keep every block of the launch (``tiles`` row tiles of
+    column strips) resident at once (one wave), with no empty split."""
     tier = (m <= 16) if name == "dequant_gemv" else (m <= 64)  # m-tiles
     key = (name, tier, kind, cw, device.index)
     occ = _occupancy.get(key)
@@ -154,8 +154,8 @@ def _split_k(name: str, m: int, n: int, kp: int, kind: int, cw: int,
             raise RuntimeError(f"{name}: occupancy query failed")
         _occupancy[key] = occ
     chunks = -(-kp // _CHUNK)
-    blocks_n = -(-n // (_WARPS * 32 * cw))
-    split = max(1, min(chunks, occ * _sm_count(device) // blocks_n))
+    blocks = tiles * -(-n // (_WARPS * 32 * cw))
+    split = max(1, min(chunks, occ * _sm_count(device) // blocks))
     per = -(-chunks // split)
     return -(-chunks // per), per
 

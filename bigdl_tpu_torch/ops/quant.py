@@ -13,8 +13,8 @@ layout is the JAX package's, so both packages compute on the same bytes:
 - Scales (and asym zeros) are bfloat16 ``[Kp/B, N]``.
 
 ``Kp`` is K rounded up to a block multiple. Planes may carry leading
-dims (layer-stacked weights ``[L, ...]``); ``shape`` stays the logical
-``(K, N)`` of one layer.
+dims (layer-stacked weights ``[L, ...]``, MoE expert stacks ``[L, E, ...]``);
+``shape`` stays the logical ``(K, N)`` of one matrix.
 """
 
 from __future__ import annotations
@@ -120,6 +120,22 @@ class QTensor:
         return QTensor(self.data[i], self.scale[i],
                        None if self.zero is None else self.zero[i],
                        self.qtype, self.shape)
+
+    def take(self, ids: torch.Tensor) -> "QTensor":
+        """The matrices at ``ids`` (an int tensor on the planes' device)
+        of a stacked QTensor, as a new ``[len(ids), ...]`` stack: one
+        ``index_select`` per plane, no host sync."""
+        return QTensor(self.data.index_select(0, ids),
+                       self.scale.index_select(0, ids),
+                       None if self.zero is None
+                       else self.zero.index_select(0, ids),
+                       self.qtype, self.shape)
+
+    def plane_strides(self) -> Tuple[int, int]:
+        """Leading-axis strides of the (data, scale) planes in elements
+        (the zero plane shares the scale plane's): the distance from one
+        expert's matrix to the next in an ``[E, ...]`` stack."""
+        return self.data.stride(0), self.scale.stride(0)
 
     def to(self, device) -> "QTensor":
         return QTensor(self.data.to(device), self.scale.to(device),

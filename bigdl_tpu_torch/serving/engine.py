@@ -45,9 +45,8 @@ import torch
 
 from bigdl_tpu_torch.config import (flags, resolve_kv_page_size,
                                     resolve_kv_pages, resolve_prefix_sharing)
-from bigdl_tpu_torch.models import llama as llama_mod
 from bigdl_tpu_torch.ops import random as rnd
-from bigdl_tpu_torch.ops.kvcache import KVCache, init_cache
+from bigdl_tpu_torch.ops.kvcache import KVCache
 from bigdl_tpu_torch.ops.paged import (NULL_PAGE, cow_copy_pages,
                                        gather_pages_dense, paged_cache_bytes)
 from bigdl_tpu_torch.serving.pagepool import PagePool, RadixCache
@@ -168,9 +167,12 @@ def sample_rows(lg: torch.Tensor, temps: torch.Tensor, top_ks: torch.Tensor,
 
 
 class LLMEngine:
-    """Synchronous continuous-batching engine over one llama-family model
-    (anything with ``.params``, ``.config`` and ``.hf_config``). Drive it
-    with add_request() + step(), or generate()."""
+    """Synchronous continuous-batching engine over one model: anything
+    with ``.params``, ``.config``, ``.hf_config`` and ``.family``, the
+    model module whose ``check_supported`` / ``forward`` / ``new_cache``
+    (and, for paged KV, ``forward_paged`` / ``new_paged_cache`` with
+    ``SUPPORTS_PAGED_KV``) the engine calls. Drive it with add_request() +
+    step(), or generate()."""
 
     def __init__(self, model: Any, config: Optional[EngineConfig] = None,
                  device="cuda"):
@@ -178,7 +180,8 @@ class LLMEngine:
         self.params = model.params
         self.cfg = model.config
         self.device = torch.device(device)
-        llama_mod.check_supported(self.cfg)
+        self.family = model.family
+        self.family.check_supported(self.cfg)
         eos = (getattr(model, "hf_config", None) or {}).get("eos_token_id")
         self.eos_token_id = eos[0] if isinstance(eos, list) else eos
         # explicit EngineConfig values validate loudly here; None defers
@@ -198,12 +201,18 @@ class LLMEngine:
         self.radix: Optional[RadixCache] = None
         self.cow_pages_total = 0
         if self._paged:
+            if not getattr(self.family, "SUPPORTS_PAGED_KV", False):
+                raise ValueError(
+                    f"kv_page_size={page_size} needs a family with a paged "
+                    f"forward (SUPPORTS_PAGED_KV); "
+                    f"{getattr(self.family, '__name__', self.family)!r} "
+                    "has none")
             if ce.max_seq % page_size:
                 raise ValueError(f"max_seq {ce.max_seq} must be a multiple "
                                  f"of kv_page_size {page_size}")
             self._pages_per_seq = ce.max_seq // page_size
             self._num_pages = n_pages or ce.max_batch * self._pages_per_seq + 1
-            self.cache = llama_mod.new_paged_cache(
+            self.cache = self.family.new_paged_cache(
                 self.cfg, self._num_pages, page_size, ce.max_batch,
                 device=self.device)
             self.pool = PagePool(self._num_pages, page_size)
@@ -219,10 +228,9 @@ class LLMEngine:
             self._kv_bytes_per_page = (paged_cache_bytes(self.cache)["total"]
                                        // self._num_pages)
         else:
-            self.cache = init_cache(self.cfg.num_hidden_layers, ce.max_batch,
-                                    ce.max_seq, self.cfg.num_key_value_heads,
-                                    self.cfg.hd, per_slot_pos=True,
-                                    device=self.device)
+            self.cache = self.family.new_cache(
+                self.cfg, ce.max_batch, ce.max_seq, per_slot_pos=True,
+                device=self.device)
         self.slots = [_Slot() for _ in range(ce.max_batch)]
         self.waiting: "collections.deque[Request]" = collections.deque()
         self._outputs: Dict[str, List[RequestOutput]] = {}
@@ -283,12 +291,12 @@ class LLMEngine:
             # copy-on-write barrier first (shared write pages get private
             # copies), then one decode through the block tables
             self._cow_step(active)
-            logits, self.cache = llama_mod.forward_paged(
+            logits, self.cache = self.family.forward_paged(
                 self.params, self.cfg, tokens, self.cache, self._bt(),
                 last_only=True)
         else:
-            logits, self.cache = llama_mod.forward(self.params, self.cfg,
-                                                   tokens, self.cache)
+            logits, self.cache = self.family.forward(self.params, self.cfg,
+                                                     tokens, self.cache)
         toks = self._sample(logits[:, -1, :], active)
         for i in active:
             s = self.slots[i]
@@ -343,9 +351,8 @@ class LLMEngine:
                 if adm is None:
                     return
                 consumed, shared, new = adm
-            cache1 = init_cache(self.cfg.num_hidden_layers, 1, alloc,
-                                self.cfg.num_key_value_heads, self.cfg.hd,
-                                device=self.device)
+            cache1 = self.family.new_cache(self.cfg, 1, alloc,
+                                           device=self.device)
             if consumed:
                 self._seed_pages(cache1, shared, consumed)
             a = self._admitting = _Admission(req, free, consumed, cache1,
@@ -356,7 +363,7 @@ class LLMEngine:
         padded = torch.zeros((1, a.chunk), dtype=torch.int64)
         padded[0, :len(part)] = torch.tensor(part, dtype=torch.int64)
         try:
-            logits, a.cache1 = llama_mod.forward(
+            logits, a.cache1 = self.family.forward(
                 self.params, self.cfg, padded.to(self.device), a.cache1)
         except BaseException:
             # give the reserved pages back and requeue the request before

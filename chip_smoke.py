@@ -7,12 +7,14 @@ Phases, all of them on every run, each printing one JSON line:
 1. device: name and power limit (nvidia-smi); fails without CUDA.
 2. build: nvcc builds every kernel from ``bigdl_tpu_torch/csrc``.
 3. kernels: each hand-written kernel (B1 dequant GEMV, B2 dequant GEMM,
-   B3 decode attention, B4 prefill attention, B5 paged decode attention)
-   against its plain PyTorch version on the card, at Llama-2-7B shapes,
-   with times of the kernel, the plain version and a PyTorch library
-   yardstick, and the least time the card could take (bytes / 3.35 TB/s
-   or flops / 989 TFLOP/s). B5 must also equal B3 bit for bit on the same
-   rows laid out densely.
+   B3 decode attention, B4 prefill attention, B5 paged decode attention,
+   B6 ragged expert matmul) against its plain PyTorch version on the card,
+   at Llama-2-7B shapes (B4 also at Mixtral's GQA, B6 at Mixtral-8x7B's
+   expert shapes under a prefill-chunk and a decode routing), with times
+   of the kernel, the plain version and a PyTorch library yardstick, and
+   the least time the card could take (bytes / 3.35 TB/s or flops / 989
+   TFLOP/s). B5 must also equal B3 bit for bit on the same rows laid out
+   densely, and B6 each tile of B2 at B2's K split.
 4. reference: a 2-layer cut of the full-width model, prefill + one decode
    step on the card (kernels) against the same on the CPU (plain).
 5. engine: seeded full-width Llama-2-7B, sym_int4 linears, merged
@@ -30,6 +32,19 @@ Phases, all of them on every run, each printing one JSON line:
    token in a 129-page arena (the bytes of the 8-slot slab) at max_batch
    32: all 32 must be active at once, the radix must hit 31 times, the
    pool must never run dry, and copy-on-write must copy.
+8. model_moe: the Llama model is freed, and full-width, full-depth
+   Mixtral-8x7B (sym_int4 linears, random weights from seed 0) is built
+   on the card.
+9. reference_moe: a 2-layer cut, 8 prompts of 32 tokens then one decode
+   step (both through B6) on the card, against the same on the CPU with
+   the ragged dispatch on B6's plain version.
+10. engine_moe: the engine phase's eight requests through ``LLMEngine``
+   serving Mixtral, twice: every request finishes, greedy and seeded
+   streams repeat, B1-B4 and B6 launch, B6 in prefill and in decode; then
+   a profiled decode window.
+11. engine_moe_gather: four greedy requests at max_batch 4, so decode
+   gathers the chosen experts (N * k = 8 <= E): streams repeat, and B1
+   launches during decode-only steps while B6 does not.
 
 Then a ``kernels`` summary line, the card's name and power limit, and the
 final ``{"ok": true, "device": ...}`` line. Any failed check exits non-zero
@@ -38,6 +53,7 @@ before the final line is printed. Imports torch, numpy and the port only.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -75,6 +91,14 @@ KERNELS = {
     "paged_decode_attention": dict(
         source="bigdl_tpu_torch/csrc/paged_decode_attention.cu",
         replaces="bigdl_tpu/ops/pallas/paged_decode_attention.py:129"),
+    "ragged_expert_matmul": dict(
+        source="bigdl_tpu_torch/csrc/moe_dispatch.cu",
+        replaces="bigdl_tpu/ops/pallas/moe_dispatch.py:90"),
+}
+
+MIXTRAL_EXPERT_LINEARS = {     # [K, N] of each expert projection
+    "gate_up": (4096, 14336),
+    "down": (14336, 4096),
 }
 
 
@@ -333,6 +357,145 @@ def _paged_case(timer, randn, gen, b, h, hkv, hd, ps, np_, pos_list, timed):
     return rec
 
 
+def _stack_q(randn, e, k, n, qtype):
+    """An [E, K, N] stack of quantized random experts."""
+    from bigdl_tpu_torch.ops.quant import QTensor, quantize
+
+    ws = [quantize(randn(k, n, scale=0.02), qtype) for _ in range(e)]
+    return QTensor(torch.stack([w.data for w in ws]),
+                   torch.stack([w.scale for w in ws]),
+                   None if ws[0].zero is None
+                   else torch.stack([w.zero for w in ws]), qtype,
+                   ws[0].shape)
+
+
+def _prefill_routing(dev):
+    """A 256-token prefill chunk, top-2 of 8 experts, skewed: expert 0
+    takes 200 choices (two tiles), expert 7 none; Np 1536."""
+    topi = [(0, 1 + i % 6) if i < 200 else (1 + i % 6, 1 + (i + 1) % 6)
+            for i in range(256)]
+    return torch.tensor(topi, dtype=torch.int64, device=dev)
+
+
+def _decode_routing(gen, dev, n=8, e=8):
+    """An n-slot decode step, top-2 of e experts at random; Np 1152."""
+    return torch.stack([torch.randperm(e, generator=gen, device=dev)[:2]
+                        for _ in range(n)])
+
+
+def _grouped_library(x, r, num_experts):
+    """One PyTorch call computing the ragged product on a dequantized
+    [E, K, N] stack (timing yardstick only): torch._grouped_mm over the
+    expert regions where this torch has it, else a torch.matmul per tile.
+    Returns (name, fn(dense) -> y)."""
+    t = 128
+    te = r.tile_expert.tolist()
+    # each expert's padded region (its tiles that hold rows; the trailing
+    # tiles hold none and stay out of the call), as cumulative row ends
+    per_e = [0] * num_experts
+    for e_, n_ in zip(te, r.tile_rows.tolist()):
+        if n_:
+            per_e[e_] += t
+    ends = np.cumsum(per_e).tolist()
+    offs = torch.tensor(ends, dtype=torch.int32, device=x.device)
+
+    def grouped(dense):
+        return torch._grouped_mm(x, dense, offs=offs)
+
+    def loop(dense):
+        return torch.cat([x[i * t:(i + 1) * t] @ dense[e_]
+                          for i, e_ in enumerate(te)])
+
+    if hasattr(torch, "_grouped_mm"):
+        try:
+            dense0 = torch.zeros((num_experts, x.shape[1], 8),
+                                 dtype=torch.bfloat16, device=x.device)
+            grouped(dense0)
+            return "torch._grouped_mm", grouped
+        except (RuntimeError, TypeError):
+            pass
+    return "torch.matmul per tile", loop
+
+
+def _ragged_case(timer, randn, routing, rname, lname, w, iters,
+                 b2_check=False):
+    """B6 against its plain version on a token buffer laid out by the
+    port's own routing (real rows random, padding rows zero). The bound
+    counts what the routing needs: the real rows of x, all of y, the
+    packed planes of the experts that hold rows, and the real rows'
+    flops (the padded buffer's flops are reported beside it)."""
+    from bigdl_tpu_torch.ops.cuda.dequant_matmul import (_kind, _split_k,
+                                                         dequant_gemm)
+    from bigdl_tpu_torch.ops.cuda.moe_dispatch import (
+        _launch, plain_ragged_expert_matmul, ragged_expert_matmul)
+    from bigdl_tpu_torch.ops.moe_dispatch import ragged_routing
+    from bigdl_tpu_torch.ops.quant import QTensor, dequantize
+
+    quantized = isinstance(w, QTensor)
+    if quantized:
+        num_e, k, n, nbytes_w = w.data.shape[0], w.k, w.n, w.nbytes
+    else:
+        num_e, k, n = w.shape
+        nbytes_w = w.numel() * w.element_size()
+    r = ragged_routing(routing, num_e)
+    x = torch.zeros((r.np_, k), dtype=torch.bfloat16, device=routing.device)
+    x[r.dest] = randn(len(r.dest), k).to(torch.bfloat16)
+    te, tr = r.tile_expert, r.tile_rows
+    got = ragged_expert_matmul(x, w, te, tr)
+    want = plain_ragged_expert_matmul(x, w, te)
+    torch.cuda.synchronize()
+    nk = routing.numel()
+    used = sorted({e_ for e_, rows in zip(te.tolist(), tr.tolist()) if rows})
+    nbytes = nk * k * 2 + r.np_ * n * 2 + len(used) * nbytes_w // num_e
+    b_ms, b_by = bound_ms(nbytes, 2.0 * nk * k * n)
+    rec = {"kernel": "ragged_expert_matmul",
+           "qtype": w.qtype if quantized else "bf16",
+           "routing": rname,
+           "linear": lname, "tokens": routing.shape[0], "E": num_e,
+           "Np": r.np_, "K": k, "N": n, "tile_expert": te.tolist(),
+           "tile_rows": tr.tolist(), "experts_with_rows": len(used),
+           "max_abs_err": max_err(got, want), "tol": MATMUL_TOL,
+           "ok": allclose(got, want, MATMUL_TOL),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "flops_real_rows": 2.0 * nk * k * n,
+           "flops_padded": 2.0 * r.np_ * k * n,
+           "bound_ms_padded_flops": bound_ms(nbytes,
+                                             2.0 * r.np_ * k * n)[0]}
+    if b2_check:
+        # B6 at B2's K split equals B2 on each real tile, bit for bit
+        sp = _split_k("dequant_gemm", 128, n, w.kp, _kind(w), 1, x.device)
+        y6 = _launch(x, w, te, tr, split=sp)
+        same = [bool(torch.equal(
+            dequant_gemm(x[i * 128:(i + 1) * 128], w.index(e_)),
+            y6[i * 128:(i + 1) * 128]))
+            for i, (e_, rows) in enumerate(zip(te.tolist(), tr.tolist()))
+            if rows]
+        rec["b2_split"] = list(sp)
+        rec["equal_to_b2_per_tile"] = same
+        rec["ok"] = rec["ok"] and all(same)
+    if iters:
+        def dequant_all():
+            if not quantized:
+                return w
+            return torch.stack([dequantize(w.index(e_), torch.bfloat16)
+                                for e_ in range(num_e)])
+
+        dense = dequant_all()
+        lib_name, lib = _grouped_library(x, r, num_e)
+        real = r.tile_rows.repeat_interleave(128) > (
+            torch.arange(r.np_, device=x.device) % 128)
+        rec["library"] = lib_name
+        rec["library_max_abs_err"] = max_err(lib(dense)[real], want[real])
+        rec["ms"] = timer.ms(lambda: ragged_expert_matmul(x, w, te, tr),
+                             iters)
+        rec["plain_ms"] = timer.ms(
+            lambda: plain_ragged_expert_matmul(x, w, te), iters)
+        rec["library_ms"] = timer.ms(lambda: lib(dequant_all()), iters)
+        rec["matmul_only_ms"] = timer.ms(lambda: lib(dense), iters)
+        del dense
+    return rec
+
+
 def phase_kernels(timer):
     from bigdl_tpu_torch.ops.cuda.dequant_matmul import (dequant_gemm,
                                                          dequant_gemv)
@@ -395,6 +558,8 @@ def phase_kernels(timer):
                          (256, 2048, 256)):
         cases.append(("prefill_attention", 1, sq, 32, 32, 128, smax, [p0],
                       True))
+    # Mixtral-8x7B's GQA (32 query heads on 8 kv heads) at a 256-token chunk
+    cases.append(("prefill_attention", 1, 256, 32, 8, 128, 2048, [256], True))
     for hd in (64, 256):
         cases.append(("prefill_attention", 2, 128, 8, 2, hd, 384, [128],
                       False))
@@ -419,6 +584,38 @@ def phase_kernels(timer):
                           [2 * ps - 1, 3, ps + 2, 2 * ps + 5], False)
         records.append(rec)
         emit({"phase": "kernels", **rec})
+
+    # B6 at Mixtral-8x7B's expert shapes, sym_int4, under a skewed
+    # prefill-chunk routing and a decode routing; the first case is also
+    # held tile by tile against B2
+    for lname, (k, n) in MIXTRAL_EXPERT_LINEARS.items():
+        w = _stack_q(randn, 8, k, n, "sym_int4")
+        for rname, routing in (("prefill", _prefill_routing(dev)),
+                               ("decode", _decode_routing(gen, dev))):
+            rec = _ragged_case(timer, randn, routing, rname, lname, w,
+                               iters=10, b2_check=(lname == "gate_up"
+                                                   and rname == "prefill"))
+            records.append(rec)
+            emit({"phase": "kernels", **rec})
+        del w
+    # every ported qtype at a small, K-padded shape, and the dense bf16
+    # body at a small shape and at Mixtral's gate/up shape, untimed
+    for qtype in ("sym_int4", "asym_int4", "sym_int8", "nf4", "fp4", "nf3",
+                  None):
+        w = (_stack_q(randn, 4, 1000, 512, qtype) if qtype else
+             randn(4, 1024, 512, scale=0.02).to(torch.bfloat16))
+        routing = torch.stack([torch.randperm(4, generator=gen, device=dev)[:2]
+                               for _ in range(64)])
+        rec = _ragged_case(timer, randn, routing, "random", "small", w,
+                           iters=0)
+        records.append(rec)
+        emit({"phase": "kernels", **rec})
+    w = randn(8, 4096, 14336, scale=0.02).to(torch.bfloat16)
+    rec = _ragged_case(timer, randn, _prefill_routing(dev), "prefill",
+                       "gate_up", w, iters=0)
+    records.append(rec)
+    emit({"phase": "kernels", **rec})
+    del w
 
     bad = [r for r in records if not r["ok"]]
     require(not bad, f"{len(bad)} kernel case(s) disagree with their plain "
@@ -493,7 +690,9 @@ def phase_reference(params, cfg):
 
 def _run_requests(eng, requests):
     """Feed all requests, step to completion; returns tokens, TTFT and
-    pure-decode step timing."""
+    pure-decode step timing (with each kernel's launches in those steps)."""
+    from bigdl_tpu_torch.ops.cuda import launch_counts
+
     t0 = time.perf_counter()
     for rid, prompt, sp in requests:
         eng.add_request(rid, prompt, sp)
@@ -501,9 +700,11 @@ def _run_requests(eng, requests):
     reasons, ttft = {}, {}
     decode_s, decode_tokens, decode_steps, steps = 0.0, 0, 0, 0
     peak = 0
+    decode_launches = dict.fromkeys(launch_counts(), 0)
     while eng.has_unfinished():
         pure = eng._admitting is None and not eng.waiting
         n_active = sum(s.active for s in eng.slots)
+        before = launch_counts()
         ts = time.perf_counter()
         eng.step()
         torch.cuda.synchronize()
@@ -514,6 +715,8 @@ def _run_requests(eng, requests):
             decode_s += te - ts
             decode_tokens += n_active
             decode_steps += 1
+            for k, v in launch_counts().items():
+                decode_launches[k] += v - before[k]
         for rid in toks:
             for o in eng.get_outputs(rid):
                 if o.new_token_ids and rid not in ttft:
@@ -528,11 +731,12 @@ def _run_requests(eng, requests):
         "decode_tokens_per_s": decode_tokens / decode_s if decode_s else None,
         "decode_steps": decode_steps,
         "decode_step_ms": 1e3 * decode_s / decode_steps if decode_steps
-        else None}
+        else None, "decode_launches": decode_launches}
 
 
 def _kernel_group(name: str) -> str:
-    for key, group in (("dequant_mma", "dequant_gemv/gemm (B1/B2)"),
+    for key, group in (("ragged_mma", "ragged_expert_matmul (B6)"),
+                       ("dequant_mma", "dequant_gemv/gemm (B1/B2)"),
                        ("finalize_kernel", "dequant split-K sum"),
                        ("decode_attention", "decode_attention (B3)"),
                        ("prefill_attention", "prefill_attention (B4)"),
@@ -688,8 +892,8 @@ def phase_engine(params, cfg, max_new=32):
     require(in_vocab, "token outside the vocabulary")
     require(greedy_same, "greedy requests did not repeat")
     require(seeded_same, "seeded requests did not repeat")
-    missing = [k for k, v in counts.items()
-               if v <= 0 and k != "paged_decode_attention"]
+    missing = [k for k, v in counts.items() if v <= 0
+               and k not in ("paged_decode_attention", "ragged_expert_matmul")]
     require(not missing, f"kernels never launched on the main path: "
             f"{missing}")
     shared = _shared_prefix_requests(cfg, max_new)
@@ -801,6 +1005,191 @@ def phase_prefix_burst(params, cfg, n=32, max_new=64):
     return counts
 
 
+def phase_model_moe():
+    from bigdl_tpu_torch.models.llama import merge_projections
+    from bigdl_tpu_torch.utils.testing import (MIXTRAL_8X7B,
+                                               random_mixtral_params)
+
+    cfg = MIXTRAL_8X7B
+    t0 = time.perf_counter()
+    params = merge_projections(random_mixtral_params(
+        cfg, "sym_int4", seed=0, device="cuda"), cfg)
+    torch.cuda.synchronize()
+    emit({"phase": "model_moe", "model": "mixtral-8x7b", "qtype": "sym_int4",
+          "layers": cfg.num_hidden_layers,
+          "experts": cfg.num_local_experts,
+          "build_s": time.perf_counter() - t0,
+          "memory_allocated": torch.cuda.memory_allocated()})
+    return params, cfg
+
+
+def phase_reference_moe(params, cfg):
+    """2-layer cut: 8 prompts of 32 tokens (a 256-row prefill, B6) and one
+    decode step of 8 rows (B6) on the card, against the CPU running the
+    ragged dispatch on B6's plain version. A router's top-k is
+    discontinuous: a token whose k-th and (k+1)-th logits lie within the
+    two devices' bf16 noise picks another expert on each. So the CPU run
+    takes the card's expert choices (with its own logits' weights), which
+    holds the arithmetic of every layer to the tolerance; the tokens whose
+    own CPU choice differed are counted."""
+    import dataclasses
+    import os
+
+    from bigdl_tpu_torch.models import llama, mixtral
+    from bigdl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    cut_cfg = dataclasses.replace(cfg, num_hidden_layers=2)
+    gpu_params = _cut_params(params, 2)
+    cpu_params = _to_device(gpu_params, "cpu")
+    rng = np.random.default_rng(4)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size, (8, 32)))
+    nxt = torch.tensor(rng.integers(0, cfg.vocab_size, (8, 1)))
+    out = {}
+    route, card_topi, flips = llama._route, [], [0, 0]
+
+    def record(xf, router, k):
+        topi, w = route(xf, router, k)
+        card_topi.append(topi.cpu())
+        return topi, w
+
+    def replay(xf, router, k):
+        own, _ = route(xf, router, k)
+        topi = card_topi[flips[1]]
+        flips[0] += int((own != topi).any(dim=-1).sum())
+        flips[1] += 1
+        logits = torch.matmul(xf.to(torch.float32),
+                              router.to(xf.dtype).to(torch.float32))
+        return topi, torch.softmax(logits.gather(1, topi), dim=-1)
+
+    env = os.environ.get("BIGDL_TPU_TORCH_MOE_DISPATCH")
+    reset_launch_counts()
+    for dev, p in (("cuda", gpu_params), ("cpu", cpu_params)):
+        if dev == "cpu":
+            os.environ["BIGDL_TPU_TORCH_MOE_DISPATCH"] = "ragged"
+        llama._route = record if dev == "cuda" else replay
+        try:
+            cache = mixtral.new_cache(cut_cfg, 8, 256, device=dev)
+            with torch.no_grad():
+                lg1, cache = mixtral.forward(p, cut_cfg, prompt.to(dev),
+                                             cache)
+                lg2, cache = mixtral.forward(p, cut_cfg, nxt.to(dev), cache)
+            out[dev] = (lg1.float().cpu(), lg2.float().cpu())
+        finally:
+            llama._route = route
+            if env is None:
+                os.environ.pop("BIGDL_TPU_TORCH_MOE_DISPATCH", None)
+            else:
+                os.environ["BIGDL_TPU_TORCH_MOE_DISPATCH"] = env
+        if dev == "cuda":
+            counts = launch_counts()
+    res = {"phase": "reference_moe", "layers": 2, "batch": 8, "prompt": 32,
+           "launches": counts, "router_calls": flips[1],
+           "tokens_routed_otherwise_on_cpu": flips[0]}
+    ok = counts["ragged_expert_matmul"] > 0
+    for i, name in enumerate(("prefill", "decode")):
+        got, want = out["cuda"][i], out["cpu"][i]
+        scale = float(want.abs().max())
+        err = max_err(got, want)
+        fin = bool(torch.isfinite(got).all())
+        good = fin and got.shape == want.shape and err <= 0.05 * scale
+        top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        res[name] = {"shape": list(got.shape), "max_abs_err": err,
+                     "ref_max_abs": scale, "tol": 0.05 * scale,
+                     "finite": fin, "top1_agree": top1, "ok": good}
+        ok &= good
+    emit(res)
+    require(ok, "Mixtral card forward disagrees with the CPU plain forward "
+            "or never launched B6")
+    del cpu_params
+
+
+def _check_streams(name, requests, runs, cfg, max_new):
+    """Every request finished with max_new in-vocabulary tokens, and the
+    runs' greedy and seeded streams repeat."""
+    (toks1, reasons1), (toks2, _) = runs
+    require(all(reasons1.get(r) in ("length", "stop") for r, _, _ in requests),
+            f"{name}: not every request finished: {reasons1}")
+    require(all(len(toks1[r]) == max_new for r, _, _ in requests),
+            f"{name}: a request produced the wrong number of tokens")
+    require(all(0 <= t < cfg.vocab_size for v in toks1.values() for t in v),
+            f"{name}: token outside the vocabulary")
+    require(all(toks1[r] == toks2[r] for r, _, _ in requests),
+            f"{name}: streams did not repeat")
+
+
+def phase_engine_moe(params, cfg, max_new=32):
+    """The engine phase's eight requests through LLMEngine serving
+    Mixtral-8x7B (max_batch 8: decode is 16 token-choices over 8 experts,
+    the ragged dispatch), twice, then a profiled decode window."""
+    from bigdl_tpu_torch.models import mixtral
+    from bigdl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from bigdl_tpu_torch.serving.engine import EngineConfig, LLMEngine
+    from bigdl_tpu_torch.utils.testing import SyntheticCausalLM
+
+    lens, requests = _engine_requests(cfg, max_new)
+    eng = LLMEngine(SyntheticCausalLM(params, cfg, family=mixtral),
+                    EngineConfig(max_batch=8, max_seq=2048), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    toks1, reasons1, ttft, perf = _run_requests(eng, requests)
+    counts = launch_counts()
+    toks2, reasons2, _, perf2 = _run_requests(eng, requests)
+    dec = perf["decode_launches"]
+    res = {"phase": "engine_moe", "model": "mixtral-8x7b",
+           "qtype": "sym_int4", "layers": cfg.num_hidden_layers,
+           "requests": len(requests), "prompt_lens": lens,
+           "max_new_tokens": max_new, "launches": counts,
+           "finish_reasons": reasons1, "ttft_s": ttft,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           **perf, "repeat_run": perf2,
+           "decode_profile": _profile_decode(eng, requests),
+           "tokens": {r: toks1[r][:8] for r, _, _ in requests}}
+    emit(res)
+    _check_streams("engine_moe", requests,
+                   ((toks1, reasons1), (toks2, reasons2)), cfg, max_new)
+    missing = [k for k in ("dequant_gemv", "dequant_gemm", "decode_attention",
+                           "prefill_attention", "ragged_expert_matmul")
+               if counts[k] <= 0]
+    require(not missing, f"engine_moe: kernels never launched: {missing}")
+    require(dec["ragged_expert_matmul"] > 0,
+            "engine_moe: B6 never launched in a decode step")
+    require(counts["ragged_expert_matmul"] > dec["ragged_expert_matmul"],
+            "engine_moe: B6 never launched in a prefill step")
+    return counts
+
+
+def phase_engine_moe_gather(params, cfg, max_new=32):
+    """Four greedy requests at max_batch 4: decode has N * k = 8 <= 8
+    token-choices, so it gathers the chosen experts (B1 at M = 1); B6 runs
+    only in prefill."""
+    from bigdl_tpu_torch.models import mixtral
+    from bigdl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from bigdl_tpu_torch.serving.engine import EngineConfig, LLMEngine
+    from bigdl_tpu_torch.utils.testing import SyntheticCausalLM
+
+    _, requests = _engine_requests(cfg, max_new)
+    requests = [q for q in requests if q[2].temperature <= 0][:4]
+    eng = LLMEngine(SyntheticCausalLM(params, cfg, family=mixtral),
+                    EngineConfig(max_batch=4, max_seq=2048), device="cuda")
+    reset_launch_counts()
+    toks1, reasons1, ttft, perf = _run_requests(eng, requests)
+    counts = launch_counts()
+    toks2, reasons2, _, perf2 = _run_requests(eng, requests)
+    dec = perf["decode_launches"]
+    emit({"phase": "engine_moe_gather", "model": "mixtral-8x7b",
+          "max_batch": 4, "requests": len(requests),
+          "prompt_lens": [len(p) for _, p, _ in requests],
+          "launches": counts, "finish_reasons": reasons1, "ttft_s": ttft,
+          **perf, "repeat_run": perf2,
+          "tokens": {r: toks1[r][:8] for r, _, _ in requests}})
+    _check_streams("engine_moe_gather", requests,
+                   ((toks1, reasons1), (toks2, reasons2)), cfg, max_new)
+    require(dec["dequant_gemv"] > 0 and dec["ragged_expert_matmul"] == 0,
+            f"engine_moe_gather: decode launches {dec}: B1 must launch and "
+            "B6 must not")
+    return counts
+
+
 def summary(records, counts):
     """One entry per kernel: its launches on the engine run and the
     numbers of its representative main-path case."""
@@ -808,8 +1197,9 @@ def summary(records, counts):
         "dequant_gemv": dict(M=8, linear="gate_up_proj"),
         "dequant_gemm": dict(M=128, linear="gate_up_proj"),
         "decode_attention": dict(Hkv=32, hd=128),
-        "prefill_attention": dict(Sq=256, S=2048),
+        "prefill_attention": dict(Sq=256, S=2048, Hkv=32),
         "paged_decode_attention": dict(B=8, Hkv=32, hd=128),
+        "ragged_expert_matmul": dict(routing="prefill", linear="gate_up"),
     }
     out = []
     for name, meta in KERNELS.items():
@@ -827,7 +1217,8 @@ def summary(records, counts):
                        if k in main},
                     "case": {k: main[k] for k in main if k in (
                         "M", "K", "N", "B", "H", "Hkv", "hd", "S", "Sq",
-                        "ps", "NP", "pos")}})
+                        "ps", "NP", "pos", "E", "Np", "tokens", "routing",
+                        "linear")}})
     emit({"kernels": out})
 
 
@@ -854,9 +1245,18 @@ def main() -> int:
         phase_reference(params, cfg)
         counts, slab_toks, slab_shared = phase_engine(params, cfg)
         # main-path launches: each path's run, counted from 0
-        for more in (phase_engine_paged(params, cfg, slab_toks, slab_shared),
-                     phase_prefix_burst(params, cfg)):
-            for k, v in more.items():
+        more = [phase_engine_paged(params, cfg, slab_toks, slab_shared),
+                phase_prefix_burst(params, cfg)]
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        moe_params, moe_cfg = phase_model_moe()
+        phase_reference_moe(moe_params, moe_cfg)
+        more += [phase_engine_moe(moe_params, moe_cfg),
+                 phase_engine_moe_gather(moe_params, moe_cfg)]
+        for m in more:
+            for k, v in m.items():
                 counts[k] = counts.get(k, 0) + v
         summary(records, counts)
     except SmokeFailure as e:

@@ -219,7 +219,7 @@ def test_random_params_seeded_and_layer_stacked():
 
 @pytest.mark.parametrize("field,value", [
     ("use_alibi", True), ("sliding_window", 16), ("parallel_residual", True),
-    ("num_local_experts", 4), ("logits_soft_cap", 30.0)])
+    ("sandwich_norms", True), ("logits_soft_cap", 30.0)])
 def test_unported_config_features_raise(models, field, value):
     _, _, tcfg, tp = models
     cfg = dataclasses.replace(tcfg, **{field: value})
