@@ -42,13 +42,13 @@ SIGNATURES = {
         "bigdl_dequant_gemm": [_c_void_p] * 7 + [_c_int] * 8 + [_c_void_p],
         "bigdl_dequant_gemm_blocks_per_sm": [_c_int] * 3},
     "decode_attention": {
-        "bigdl_decode_attention": [_c_void_p] * 6 + [_c_int] * 5
+        "bigdl_decode_attention": [_c_void_p] * 8 + [_c_int] * 6
         + [_c_float, _c_void_p]},
     "prefill_attention": {
-        "bigdl_prefill_attention": [_c_void_p] * 5 + [_c_int] * 6
+        "bigdl_prefill_attention": [_c_void_p] * 7 + [_c_int] * 7
         + [_c_float, _c_void_p]},
     "paged_decode_attention": {
-        "bigdl_paged_decode_attention": [_c_void_p] * 7 + [_c_int] * 7
+        "bigdl_paged_decode_attention": [_c_void_p] * 9 + [_c_int] * 8
         + [_c_float, _c_void_p]},
     "moe_dispatch": {
         "bigdl_ragged_expert_matmul": [_c_void_p] * 9 + [_c_int] * 6

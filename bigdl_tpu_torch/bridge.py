@@ -8,6 +8,12 @@ copied byte for byte, stacked ``[L, ...]`` layer planes included. bf16
 leaves may arrive as a ``bfloat16`` numpy dtype or as their uint16 bit
 view; both become ``torch.bfloat16`` with the same bits. No module of the
 JAX package is imported here: the tree is duck-typed.
+
+KV caches cross too (``kv_cache_from_numpy``): a JAX ``KVCache`` or
+``PagedKVCache`` whose planes are numpy arrays becomes the port's cache
+with the same codes, scales and positions, int4 codes (``ml_dtypes.int4``)
+packed two to a byte; ``kv_cache_to_numpy`` reads one back for
+comparison.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from bigdl_tpu_torch.ops.kvcache import KVCache, pack_int4, unpack_int4
+from bigdl_tpu_torch.ops.paged import PagedKVCache
 from bigdl_tpu_torch.ops.quant import QTensor, get_qtype
 
 
@@ -66,3 +74,50 @@ def params_from_numpy(tree: Any, device="cuda") -> Any:
     if tree is None:
         return None
     return tensor_from_numpy(tree, device)
+
+
+def kv_plane_from_numpy(a, device="cuda") -> torch.Tensor:
+    """One KV code or scale plane: bf16, float8_e5m2 (same bytes), int8,
+    int4 (packed, ``ops/kvcache.pack_int4``) or f32."""
+    a = np.asarray(a)
+    name = a.dtype.name
+    if name == "float8_e5m2":
+        bits = np.ascontiguousarray(a).view(np.uint8)
+        return torch.from_numpy(bits.copy()).view(torch.float8_e5m2).to(
+            device)
+    if name == "int4":
+        return pack_int4(torch.from_numpy(a.astype(np.int8))).to(device)
+    return tensor_from_numpy(a, device)
+
+
+def kv_cache_from_numpy(cache, device="cuda"):
+    """A JAX ``KVCache`` / ``PagedKVCache`` (duck-typed: ``k``, ``v``,
+    ``pos``, ``k_scale``, ``v_scale`` as numpy arrays; a paged cache is
+    recognised by its class name) -> the port's cache of the same
+    kind."""
+    planes = [None if p is None else kv_plane_from_numpy(p, device)
+              for p in (cache.k, cache.v, cache.pos, cache.k_scale,
+                        cache.v_scale)]
+    cls = PagedKVCache if type(cache).__name__ == "PagedKVCache" else KVCache
+    return cls(*planes)
+
+
+def kv_plane_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A port KV plane as numpy: bf16 as its uint16 bits, float8_e5m2 as
+    its bytes, int4 unpacked to int8 codes, int8 and f32 as they are."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    if t.dtype == torch.float8_e5m2:
+        return t.view(torch.uint8).numpy()
+    if t.dtype == torch.uint8:
+        return unpack_int4(t).numpy()
+    return t.numpy()
+
+
+def kv_cache_to_numpy(cache) -> dict:
+    """Inverse of ``kv_cache_from_numpy`` for comparison: the planes of a
+    port cache by name (``kv_plane_to_numpy``; missing scales None)."""
+    return {f: None if getattr(cache, f) is None
+            else kv_plane_to_numpy(getattr(cache, f))
+            for f in ("k", "v", "pos", "k_scale", "v_scale")}

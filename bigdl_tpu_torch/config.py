@@ -14,6 +14,11 @@ Only the knobs the serving path reads:
   engine's paged KV mode, read when an ``EngineConfig`` field is None
   (``kv_page_size`` / ``kv_pages`` / ``prefix_sharing`` of the JAX
   package, ``bigdl_tpu/config.py``).
+- ``BIGDL_TPU_TORCH_KV_CACHE_DTYPE`` (default ``bf16``): the engine's KV
+  storage (``bf16``, ``fp8_e5m2``, ``int8`` or ``int4``, and the aliases
+  of ``ops/kvcache.resolve_kv_cache_dtype``), read when
+  ``EngineConfig.kv_cache_dtype`` is None (``kv_cache_dtype`` of the JAX
+  package).
 - ``BIGDL_TPU_TORCH_MOE_DISPATCH`` (default ``auto``): how a sparse-MoE
   MLP combines its experts when more token-choices arrive than there are
   experts (fewer always gather the chosen experts). ``auto`` runs the
@@ -27,6 +32,8 @@ from __future__ import annotations
 
 import dataclasses
 import os
+
+from bigdl_tpu_torch.ops.kvcache import resolve_kv_cache_dtype
 
 # rows one dequant-GEMM launch takes (GEMM_MAX_M of ops/cuda/dequant_matmul)
 MATMUL_MAX_M_CEILING = 128
@@ -80,6 +87,7 @@ class Flags:
     kv_pages: int = 0
     prefix_sharing: str = "auto"
     moe_dispatch: str = "auto"
+    kv_cache_dtype: str = "bf16"
 
 
 def flags() -> Flags:
@@ -104,4 +112,6 @@ def flags() -> Flags:
         kv_pages=resolve_kv_pages(env("BIGDL_TPU_TORCH_KV_PAGES", "0")),
         prefix_sharing=resolve_prefix_sharing(
             env("BIGDL_TPU_TORCH_PREFIX_SHARING", "auto")),
-        moe_dispatch=moe)
+        moe_dispatch=moe,
+        kv_cache_dtype=resolve_kv_cache_dtype(
+            env("BIGDL_TPU_TORCH_KV_CACHE_DTYPE", "bf16")))

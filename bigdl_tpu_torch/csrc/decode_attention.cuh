@@ -1,23 +1,27 @@
 // One-query (decode) causal GQA attention, split-S flash decoding: the body
 // shared by B3 (slab cache, decode_attention.cu) and B5 (paged arena,
 // paged_decode_attention.cu). The two differ only in where key j of slot b
-// lives, which a `Rows` policy gives as an element offset:
+// lives, which a `Rows` policy gives as a row index into the [rows, Hkv, hd]
+// code planes (and the [rows, Hkv] scale planes):
 //
 //   struct Rows {
-//       const uint16_t* k; const uint16_t* v;   // bf16 bits
-//       int rs;                                 // elements per row
-//       __device__ size_t offset(int b, int j); // row (b, j), head 0
+//       __device__ unsigned row(int b, int j);  // row of key j of slot b
 //   };
 //
 // Each thread owns a copy of the policy (it may cache, as the paged one
-// caches its current page id). offset() is asked once per group of four
-// keys, j % 4 == 0 and j < S, whose rows lie rs apart and all exist (a
-// slot or a page holds a multiple of 4 rows; row indices fit in 32 bits,
-// element offsets in 64). So all four rows are loaded
-// unconditionally, keeping the eight loads of a group in flight together,
-// and a key past pos is masked after the load. B5 does exactly B3's
-// arithmetic on the same rows, and its output is bit-identical to B3's
-// over the same rows laid out densely.
+// caches its current page id). row() is asked once per group of four
+// keys, j % 4 == 0 and j < S, whose rows follow one another and all exist
+// (a slot or a page holds a multiple of 4 rows; row indices fit in 32 bits,
+// code offsets in 64). So all four rows are loaded unconditionally, keeping
+// the eight loads of a group (and, for int8/int4, its eight scale loads) in
+// flight together, and a key past pos is masked after the load. B5 does
+// exactly B3's arithmetic on the same rows, and its output is bit-identical
+// to B3's over the same rows laid out densely, for every storage kind.
+//
+// Storage: a `Kv` policy of kv_storage.cuh (bf16, fp8_e5m2, int8 or int4
+// codes). A lane loads the codes of its 4 head dims in one load of 8, 4 or
+// 2 bytes and turns them into f32 with dequant4 (int8/int4: times the row's
+// f32 scale, rounded to bf16, the bits of the TPU kernels' `_dequant_rows`).
 //
 // Semantics: q [B, 1, H, hd] against S logical keys per slot; key j counts
 // for slot b iff j <= pos[b]; scores scaled in f32, softmax in f32,
@@ -25,8 +29,9 @@
 // kernels do), output bf16 [B, 1, H, hd].
 //
 // Bound on the H100: bytes. Each visible row serves only G = H/Hkv query
-// rows, ~2G flops per K/V byte, far under the bf16 ridge; the floor is the
-// visible K/V bytes, sum_b min(pos[b] + 1, S) * Hkv * hd * 2 (K and V) * 2.
+// rows, ~2G flops per K/V value, far under the ridge; the floor is the
+// visible K/V codes and scales, sum_b min(pos[b] + 1, S) * Hkv *
+// (hd * bytes_per_code + scale bytes) * 2 (K and V).
 //
 // Design: S is cut into 256-key spans, one block per (kv head, slot, span),
 // so even a batch of 8 slots puts thousands of warps in flight, and spans
@@ -42,6 +47,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "kv_storage.cuh"
 
 namespace {
 
@@ -57,24 +63,22 @@ __device__ __forceinline__ float warp_sum(float v) {
     return v;
 }
 
-// four consecutive bf16 values (8 bytes) -> f32
-__device__ __forceinline__ void unpack4(uint2 u, float* out) {
-    out[0] = __uint_as_float(u.x << 16);
-    out[1] = __uint_as_float(u.x & 0xffff0000u);
-    out[2] = __uint_as_float(u.y << 16);
-    out[3] = __uint_as_float(u.y & 0xffff0000u);
-}
-
-// G query rows per kv head, NS 128-wide slices of the head dim
-template <int G, int NS, class Rows>
+// G query rows per kv head, NS 128-wide slices of the head dim, codes of
+// storage kind KV
+template <int G, int NS, class KV, class Rows>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_split(const uint16_t* __restrict__ q,   // [B, H, hd]
+                       const uint8_t* __restrict__ kc,   // [rows, Hkv, hd]
+                       const uint8_t* __restrict__ vc,
+                       const float* __restrict__ ksc,    // [rows, Hkv]
+                       const float* __restrict__ vsc,    //   (int8/int4)
                        Rows rows,
                        const int* __restrict__ pos,      // [B]
                        float* __restrict__ ws_m,         // [B*H, P]
                        float* __restrict__ ws_l,         // [B*H, P]
                        float* __restrict__ ws_acc,       // [B*H, P, hd]
-                       int S, int H, int hd, float scale) {
+                       int S, int H, int Hkv, int hd, float scale) {
+    using Word = typename KV::Word4;
     const int kh = blockIdx.x;
     const int b = blockIdx.y;
     const int span = blockIdx.z;
@@ -99,9 +103,10 @@ decode_attention_split(const uint16_t* __restrict__ q,   // [B, H, hd]
                 acc[g][s][e] = 0.f;
             }
             if (d < hd) {
-                unpack4(*reinterpret_cast<const uint2*>(
-                            q + ((size_t)b * H + kh * G + g) * hd + d),
-                        qr[g][s]);
+                dequant4<Kv<KV_BF16>>(
+                    *reinterpret_cast<const uint2*>(
+                        q + ((size_t)b * H + kh * G + g) * hd + d),
+                    1.f, qr[g][s]);
             }
         }
     }
@@ -110,39 +115,55 @@ decode_attention_split(const uint16_t* __restrict__ q,   // [B, H, hd]
     const int nvalid = min(pos[b] + 1, S);
     const int j0 = span * kSpan;
     const int j1 = min(j0 + kSpan, nvalid);
+    const unsigned rs = (unsigned)Hkv * (unsigned)hd;   // codes per row
     const size_t head = (size_t)kh * hd;
 
     for (int j = j0 + warp * kKeysPerStep; j < j1;
          j += kWarps * kKeysPerStep) {
         float kr[kKeysPerStep][NS][4], vr[kKeysPerStep][NS][4];
-        // the group's eight row loads: addresses first, then loads
-        // predicated on nothing but the lane's head-dim range, so all are
-        // in flight together; unpacking waits until after them
-        uint2 kw[kKeysPerStep][NS], vw[kKeysPerStep][NS];
-        const size_t r0 = rows.offset(b, j) + head;   // keys j .. j + 3
+        // the group's eight row loads (and eight scale loads): addresses
+        // first, then loads predicated on nothing but the lane's head-dim
+        // range, so all are in flight together; dequantizing waits until
+        // after them
+        Word kw[kKeysPerStep][NS], vw[kKeysPerStep][NS];
+        float ks[kKeysPerStep], vs[kKeysPerStep];
+        const unsigned r0 = rows.row(b, j);           // keys j .. j + 3
+        const size_t e0 = (size_t)r0 * rs + head;     // code index
 #pragma unroll
         for (int kk = 0; kk < kKeysPerStep; ++kk) {
-            const uint16_t* kp = rows.k + r0 + (size_t)kk * rows.rs;
-            const uint16_t* vp = rows.v + r0 + (size_t)kk * rows.rs;
+            const size_t e = e0 + (size_t)kk * rs;
+            const uint8_t* kp = kc + code_bytes<KV>(e);
+            const uint8_t* vp = vc + code_bytes<KV>(e);
 #pragma unroll
             for (int s = 0; s < NS; ++s) {
                 const int d = s * 128 + lane * 4;
-                kw[kk][s] = make_uint2(0u, 0u);
-                vw[kk][s] = make_uint2(0u, 0u);
+                kw[kk][s] = Word{};
+                vw[kk][s] = Word{};
                 if (d < hd) {
-                    kw[kk][s] = *reinterpret_cast<const uint2*>(kp + d);
-                    vw[kk][s] = *reinterpret_cast<const uint2*>(vp + d);
+                    kw[kk][s] = *reinterpret_cast<const Word*>(
+                        kp + code_bytes<KV>(d));
+                    vw[kk][s] = *reinterpret_cast<const Word*>(
+                        vp + code_bytes<KV>(d));
                 }
+            }
+            ks[kk] = 1.f;
+            vs[kk] = 1.f;
+            if constexpr (KV::kScaled) {
+                const size_t si = (size_t)(r0 + kk) * Hkv + kh;
+                ks[kk] = ksc[si];
+                vs[kk] = vsc[si];
             }
         }
 #pragma unroll
         for (int kk = 0; kk < kKeysPerStep; ++kk) {
-            // a masked key's V row (stale or null-page data) weighs 0
+            // a masked key's V row (stale or null-page data, and its
+            // scale) weighs 0
             const bool live = j + kk < j1;
 #pragma unroll
             for (int s = 0; s < NS; ++s) {
-                unpack4(kw[kk][s], kr[kk][s]);
-                unpack4(live ? vw[kk][s] : make_uint2(0u, 0u), vr[kk][s]);
+                dequant4<KV>(kw[kk][s], ks[kk], kr[kk][s]);
+                dequant4<KV>(live ? vw[kk][s] : Word{}, live ? vs[kk] : 0.f,
+                             vr[kk][s]);
             }
         }
 #pragma unroll
@@ -227,15 +248,44 @@ __global__ void decode_attention_combine(const float* __restrict__ ws_m,
     out[(size_t)bh * hd + d] = f32_to_bf16(num / (den > 0.f ? den : 1.f));
 }
 
-// Both passes over S logical keys. Returns the cudaError_t of the launches
-// (0 on success). ws holds B * H * P * (hd + 2) floats, P = ceil(S / 256)
-// * 4 partials per head.
+// The split pass for one storage kind; false if no kernel is built for
+// (G, NS).
+template <class KV, class Rows>
+bool launch_split(const Rows rows, const void* q, const void* k,
+                  const void* v, const void* ks, const void* vs,
+                  const void* pos, float* ws_m, float* ws_l, float* ws_acc,
+                  int G, int NS, dim3 grid, int S, int H, int Hkv, int hd,
+                  float scale, cudaStream_t st) {
+#define BIGDL_DA_CASE(GV, NSV)                                              \
+    if (G == GV && NS == NSV) {                                             \
+        decode_attention_split<GV, NSV, KV, Rows><<<grid, kThreads, 0,      \
+                                                    st>>>(                  \
+            (const uint16_t*)q, (const uint8_t*)k, (const uint8_t*)v,       \
+            (const float*)ks, (const float*)vs, rows, (const int*)pos,      \
+            ws_m, ws_l, ws_acc, S, H, Hkv, hd, scale);                      \
+        return true;                                                        \
+    }
+    BIGDL_DA_CASE(1, 1) BIGDL_DA_CASE(2, 1) BIGDL_DA_CASE(4, 1)
+    BIGDL_DA_CASE(8, 1) BIGDL_DA_CASE(16, 1) BIGDL_DA_CASE(1, 2)
+    BIGDL_DA_CASE(2, 2) BIGDL_DA_CASE(4, 2) BIGDL_DA_CASE(8, 2)
+#undef BIGDL_DA_CASE
+    return false;
+}
+
+// Both passes over S logical keys, codes of KvKind `kind` (ks/vs: the f32
+// scale planes of int8/int4, else unused). Returns the cudaError_t of the
+// launches (0 on success). ws holds B * H * P * (hd + 2) floats,
+// P = ceil(S / 256) * 4 partials per head.
 template <class Rows>
-int launch_decode_attention(const Rows rows, const void* q, const void* pos,
-                            void* out, void* ws, int B, int S, int H,
-                            int Hkv, int hd, float scale, void* stream) {
+int launch_decode_attention(const Rows rows, const void* q, const void* k,
+                            const void* v, const void* ks, const void* vs,
+                            const void* pos, void* out, void* ws, int B,
+                            int S, int H, int Hkv, int hd, int kind,
+                            float scale, void* stream) {
+    const bool scaled = kind == KV_INT8 || kind == KV_INT4;
     if (B < 1 || S < 1 || S % kKeysPerStep != 0 || Hkv < 1 ||
-        H % Hkv != 0 || hd % 4 != 0 || hd > 256) {
+        H % Hkv != 0 || hd % 4 != 0 || hd > 256 || kind < KV_BF16 ||
+        kind > KV_INT4 || (scaled && (ks == nullptr || vs == nullptr))) {
         return (int)cudaErrorInvalidValue;
     }
     const int G = H / Hkv;
@@ -247,18 +297,22 @@ int launch_decode_attention(const Rows rows, const void* q, const void* pos,
     float* ws_acc = ws_l + (size_t)B * H * P;
     cudaStream_t st = (cudaStream_t)stream;
     const dim3 grid(Hkv, B, nspan);
-#define BIGDL_DA_CASE(GV, NSV)                                              \
-    if (G == GV && NS == NSV) {                                             \
-        decode_attention_split<GV, NSV, Rows><<<grid, kThreads, 0, st>>>(   \
-            (const uint16_t*)q, rows, (const int*)pos, ws_m, ws_l, ws_acc,  \
-            S, H, hd, scale);                                               \
-    } else
-    BIGDL_DA_CASE(1, 1) BIGDL_DA_CASE(2, 1) BIGDL_DA_CASE(4, 1)
-    BIGDL_DA_CASE(8, 1) BIGDL_DA_CASE(16, 1) BIGDL_DA_CASE(1, 2)
-    BIGDL_DA_CASE(2, 2) BIGDL_DA_CASE(4, 2) BIGDL_DA_CASE(8, 2) {
-        return (int)cudaErrorInvalidValue;
+    bool built = false;
+#define BIGDL_DA_KIND(KIND)                                                 \
+    case KIND:                                                              \
+        built = launch_split<Kv<KIND>, Rows>(rows, q, k, v, ks, vs, pos,    \
+                                             ws_m, ws_l, ws_acc, G, NS,     \
+                                             grid, S, H, Hkv, hd, scale,    \
+                                             st);                           \
+        break;
+    switch (kind) {
+        BIGDL_DA_KIND(KV_BF16)
+        BIGDL_DA_KIND(KV_E5M2)
+        BIGDL_DA_KIND(KV_INT8)
+        BIGDL_DA_KIND(KV_INT4)
     }
-#undef BIGDL_DA_CASE
+#undef BIGDL_DA_KIND
+    if (!built) return (int)cudaErrorInvalidValue;
     decode_attention_combine<<<B * H, hd, 0, st>>>(ws_m, ws_l, ws_acc,
                                                    (uint16_t*)out, P, hd);
     return (int)cudaGetLastError();

@@ -16,7 +16,9 @@ along a leading L axis::
      "lm_head": [D, V] QTensor or dense (absent when tied)}
 
 A Python loop over layers stands in for ``lax.scan``. The slab KV cache and
-the paged arena (``forward_paged``, bf16) are updated in place. Config
+the paged arena (``forward_paged``) are updated in place, in any storage
+kind of ``ops/kvcache.py`` (bf16, fp8_e5m2, int8/int4 with their scale
+planes). Config
 features outside the ported serving path (alibi, soft-caps, sliding
 windows, parallel or sandwich residuals, scaled rope) raise
 NotImplementedError. A layer with a ``router`` runs the sparse-MoE MLP
@@ -34,8 +36,7 @@ import torch.nn.functional as F
 from bigdl_tpu_torch.config import flags
 from bigdl_tpu_torch.ops.attention import sdp_attention, sdp_attention_paged
 from bigdl_tpu_torch.ops.embedding import embedding_lookup
-from bigdl_tpu_torch.ops.kvcache import (KVCache, init_cache, read_layer,
-                                         update_layer)
+from bigdl_tpu_torch.ops.kvcache import KVCache, init_cache, update_layer
 from bigdl_tpu_torch.ops.matmul import linear
 from bigdl_tpu_torch.ops.moe_dispatch import moe_mlp_ragged
 from bigdl_tpu_torch.ops.norms import rms_norm
@@ -314,9 +315,13 @@ def _split_qkv(qkv, b, sq, h, hkv, hd):
 def _attn_block(hidden, lp, cfg: LlamaConfig, cos, sin, cache, lidx: int,
                 block_tables: Optional[torch.Tensor] = None):
     """QKV + rope + cache append + attention + output projection (the
-    slab and bf16 paged branches of the JAX `_attn_block`). With
+    slab and paged branches of the JAX `_attn_block`). With
     ``block_tables`` the cache is a ``PagedKVCache``: appends scatter
-    through the table and attention reads through it."""
+    through the table and attention reads through it. int8/int4 rows are
+    quantized on append and attention gets the raw codes with the layer's
+    scale planes; fp8_e5m2 codes also go to attention as they are (the
+    JAX slab path upcasts them in ``read_layer`` first: the same numbers,
+    since e5m2 -> bf16 is exact, without a bf16 copy of the layer)."""
     b, sq, _ = hidden.shape
     h, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.hd
     if "qkv_proj" in lp:
@@ -328,15 +333,20 @@ def _attn_block(hidden, lp, cfg: LlamaConfig, cos, sin, cache, lidx: int,
         v = linear(hidden, lp["v_proj"]).reshape(b, sq, hkv, hd)
     q = apply_rope(q, cos, sin, interleaved=cfg.rope_interleaved)
     k = apply_rope(k, cos, sin, interleaved=cfg.rope_interleaved)
+    scaled = cache.k_scale is not None
+    ks = cache.k_scale[lidx] if scaled else None
+    vs = cache.v_scale[lidx] if scaled else None
     if block_tables is not None:
         paged_update_layer(cache.k, cache.v, lidx, k, v, cache.pos,
-                           block_tables)
+                           block_tables, cache.k_scale, cache.v_scale)
         attn = sdp_attention_paged(q.contiguous(), cache.k[lidx],
-                                   cache.v[lidx], block_tables, cache.pos)
+                                   cache.v[lidx], block_tables, cache.pos,
+                                   k_scale=ks, v_scale=vs)
     else:
-        update_layer(cache.k, cache.v, lidx, k, v, cache.pos)
-        kf, vf = read_layer(cache.k, cache.v, lidx)
-        attn = sdp_attention(q.contiguous(), kf, vf, cache.pos)
+        update_layer(cache.k, cache.v, lidx, k, v, cache.pos, cache.k_scale,
+                     cache.v_scale)
+        attn = sdp_attention(q.contiguous(), cache.k[lidx], cache.v[lidx],
+                             cache.pos, k_scale=ks, v_scale=vs)
     return linear(attn.reshape(b, sq, h * hd), lp["o_proj"])
 
 
@@ -386,7 +396,7 @@ def forward(params: Dict[str, Any], cfg: LlamaConfig, tokens: torch.Tensor,
     (f32 logits [B, Sq or 1, V], cache with pos + Sq). The cache tensors
     are written in place."""
     logits = _run(params, cfg, tokens, cache, compute_dtype, last_only)
-    return logits, KVCache(cache.k, cache.v, cache.pos + tokens.shape[1])
+    return logits, cache.reset_pos(cache.pos + tokens.shape[1])
 
 
 def forward_last_token(params, cfg: LlamaConfig, tokens, cache: KVCache,
@@ -407,26 +417,32 @@ def forward_paged(params: Dict[str, Any], cfg: LlamaConfig,
     equal positions, bit for bit. The arena is written in place."""
     logits = _run(params, cfg, tokens, cache, compute_dtype, last_only,
                   block_tables)
-    return logits, PagedKVCache(cache.k, cache.v,
-                                cache.pos + tokens.shape[1])
+    return logits, cache.reset_pos(cache.pos + tokens.shape[1])
 
 
-# this family's forward_paged threads block tables through its layers (the
-# JAX package's per-family flag, read by the engine)
+# this family threads the int8/int4 scale planes through its layers, and
+# its forward_paged threads block tables (the JAX package's per-family
+# flags, read by the engine)
+SUPPORTS_SCALED_KV = True
 SUPPORTS_PAGED_KV = True
 
 
 def new_cache(cfg: LlamaConfig, batch: int, max_seq: int,
-              per_slot_pos: bool = False, device="cuda") -> KVCache:
-    """An empty bf16 slab cache for this config."""
+              per_slot_pos: bool = False, device="cuda",
+              kv_cache_dtype: Optional[str] = None) -> KVCache:
+    """An empty slab cache for this config, storage "bf16" (default),
+    "fp8_e5m2", "int8" or "int4"."""
     return init_cache(cfg.num_hidden_layers, batch, max_seq,
                       cfg.num_key_value_heads, cfg.hd,
-                      per_slot_pos=per_slot_pos, device=device)
+                      per_slot_pos=per_slot_pos, device=device,
+                      kv_cache_dtype=kv_cache_dtype)
 
 
 def new_paged_cache(cfg: LlamaConfig, num_pages: int, page_size: int,
-                    batch: int, device="cuda") -> PagedKVCache:
-    """An empty bf16 page arena for this config (`ops/paged.py` layout)."""
+                    batch: int, device="cuda",
+                    kv_cache_dtype: Optional[str] = None) -> PagedKVCache:
+    """An empty page arena for this config (`ops/paged.py` layout) in the
+    `kv_cache_dtype` storage."""
     return init_paged_cache(cfg.num_hidden_layers, num_pages, page_size,
                             cfg.num_key_value_heads, cfg.hd, batch,
-                            device=device)
+                            device=device, kv_cache_dtype=kv_cache_dtype)

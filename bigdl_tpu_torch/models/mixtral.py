@@ -19,7 +19,7 @@ conversion (``convert_hf_params``) are not ported.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -57,7 +57,7 @@ def forward(params: Dict[str, Any], cfg: MixtralConfig, tokens: torch.Tensor,
     The cache tensors are written in place."""
     logits = llama_mod._run(params, cfg, tokens, cache, compute_dtype,
                             last_only)
-    return logits, KVCache(cache.k, cache.v, cache.pos + tokens.shape[1])
+    return logits, cache.reset_pos(cache.pos + tokens.shape[1])
 
 
 def forward_last_token(params, cfg: MixtralConfig, tokens, cache: KVCache,
@@ -66,11 +66,16 @@ def forward_last_token(params, cfg: MixtralConfig, tokens, cache: KVCache,
     return forward(params, cfg, tokens, cache, compute_dtype, last_only=True)
 
 
-# no forward_paged (the JAX family has none)
+# scale planes ride through llama's attention block; no forward_paged (the
+# JAX family has none)
+SUPPORTS_SCALED_KV = True
 SUPPORTS_PAGED_KV = False
 
 
 def new_cache(cfg: MixtralConfig, batch: int, max_seq: int,
-              per_slot_pos: bool = False, device="cuda") -> KVCache:
-    """An empty bf16 slab cache for this config."""
-    return llama_mod.new_cache(cfg, batch, max_seq, per_slot_pos, device)
+              per_slot_pos: bool = False, device="cuda",
+              kv_cache_dtype: Optional[str] = None) -> KVCache:
+    """An empty slab cache for this config in the `kv_cache_dtype`
+    storage."""
+    return llama_mod.new_cache(cfg, batch, max_seq, per_slot_pos, device,
+                               kv_cache_dtype)

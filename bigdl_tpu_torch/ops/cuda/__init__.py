@@ -9,13 +9,17 @@ which kernels its main path went through.
 
 from typing import Dict
 
+QUANT_KV_KINDS = ("fp8_e5m2", "int8", "int4")
+ATTENTION_KERNELS = ("decode_attention", "prefill_attention",
+                     "paged_decode_attention")
+
 LAUNCHES: Dict[str, int] = {
     "dequant_gemv": 0,
     "dequant_gemm": 0,
-    "decode_attention": 0,
-    "prefill_attention": 0,
-    "paged_decode_attention": 0,
+    **{name: 0 for name in ATTENTION_KERNELS},
     "ragged_expert_matmul": 0,
+    **{f"{name}_{kind}": 0 for name in ATTENTION_KERNELS
+       for kind in QUANT_KV_KINDS},
 }
 
 

@@ -1,17 +1,28 @@
 """Decode attention kernel B3 and the plain causal attention it matches.
 
 Counterpart of ``bigdl_tpu/ops/pallas/decode_attention.py``
-(``decode_attention_pallas``, bf16 cache). Source:
-``csrc/decode_attention.cu``, whose body (``csrc/decode_attention.cuh``)
-B5 shares.
+(``decode_attention_pallas``: the bf16 bodies, their float8_e5m2 input,
+and the int8/int4 bodies ``_kernel_scaled`` / ``_kernel_blocked_scaled``).
+Source: ``csrc/decode_attention.cu``, whose body
+(``csrc/decode_attention.cuh``) B5 shares.
+
+The cache may hold any storage kind of ``ops/kvcache.py``: bf16,
+float8_e5m2 codes (upcast exactly), or int8 / packed int4 codes with f32
+scales [B, S, Hkv] (dequantized as ``_dequant_rows`` does: code to f32,
+times its scale in f32, rounded to bf16 before any dot). Each kind has
+its own launch counter: ``decode_attention`` (bf16) and
+``decode_attention_<kind>``.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from bigdl_tpu_torch import _native
 from bigdl_tpu_torch.ops.cuda import LAUNCHES
+from bigdl_tpu_torch.ops.kvcache import SCALED_KV_DTYPES, dequantize_kv
 
 # the kernels' limits: query heads per kv head and head dims
 MAX_GROUP = 16
@@ -20,8 +31,67 @@ MAX_HEAD_DIM = 256
 # slices) pairs: its per-lane query rows and accumulators live in registers
 _DECODE_BUILT = {(1, 1), (2, 1), (4, 1), (8, 1), (16, 1),
                  (1, 2), (2, 2), (4, 2), (8, 2)}
-# keys per block of the decode kernel (kSpan in csrc/decode_attention.cu)
+# keys per block of the decode kernel (kSpan in csrc/decode_attention.cuh)
 _SPAN = 256
+# code storage the kernels read -> (kind name, KvKind of csrc/kv_storage.cuh)
+KV_KINDS = {torch.bfloat16: ("bf16", 0), torch.float8_e5m2: ("fp8_e5m2", 1),
+            torch.int8: ("int8", 2), torch.uint8: ("int4", 3)}
+
+
+def kv_kind(k: torch.Tensor) -> Optional[str]:
+    """Storage kind name of a code plane, None for one no kernel reads."""
+    kind = KV_KINDS.get(k.dtype)
+    return kind[0] if kind else None
+
+
+def counter(base: str, kind: str) -> str:
+    """Launch-counter name of kernel `base` on storage `kind`."""
+    return base if kind == "bf16" else f"{base}_{kind}"
+
+
+def kv_operands_ok(hd: int, k: torch.Tensor,
+                   k_scale: Optional[torch.Tensor]) -> bool:
+    """Codes of a known kind whose rows hold hd dims (int4: hd / 2
+    bytes), with scales exactly for the scaled kinds (the JAX gate:
+    bf16 and e5m2 pass without scales, int8 and int4 only with them)."""
+    kind = kv_kind(k)
+    if kind is None:
+        return False
+    width = hd // 2 if kind == "int4" else hd
+    return k.shape[-1] == width and \
+        (k_scale is not None) == (kind in SCALED_KV_DTYPES)
+
+
+def check_kv_operands(fn: str, hd: int, k: torch.Tensor, v: torch.Tensor,
+                      k_scale: Optional[torch.Tensor],
+                      v_scale: Optional[torch.Tensor]) -> int:
+    """Raise unless k/v are contiguous codes of one kind fitting hd, with
+    contiguous f32 scales of shape k.shape[:-1] on their device exactly
+    for the scaled kinds. Returns the kind's KvKind id."""
+    kind = kv_kind(k)
+    if k.shape != v.shape or k.dtype != v.dtype or kind is None \
+            or not (k.is_contiguous() and v.is_contiguous()):
+        raise ValueError(f"{fn}: k/v must be contiguous codes of one "
+                         f"storage kind, got {k.dtype} {tuple(k.shape)} and "
+                         f"{v.dtype} {tuple(v.shape)}")
+    if (k_scale is None) != (v_scale is None) or \
+            not kv_operands_ok(hd, k, k_scale):
+        raise ValueError(f"{fn}: {kind} codes {tuple(k.shape)} do not fit "
+                         f"hd={hd} with k_scale "
+                         f"{'given' if k_scale is not None else 'None'} "
+                         f"(int8/int4 need scales, bf16/fp8_e5m2 take none)")
+    for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if s is not None and (s.dtype != torch.float32
+                              or s.shape != k.shape[:-1]
+                              or s.device != k.device
+                              or not s.is_contiguous()):
+            raise ValueError(f"{fn}: {name} must be contiguous float32 "
+                             f"{tuple(k.shape[:-1])} on {k.device}")
+    return KV_KINDS[k.dtype][1]
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def _positions(pos, b: int, device) -> torch.Tensor:
@@ -31,19 +101,23 @@ def _positions(pos, b: int, device) -> torch.Tensor:
 
 
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    q_pos, scale: float) -> torch.Tensor:
+                    q_pos, scale: float,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Causal GQA attention against a (partly filled) cache: query i of
     slot b attends keys j <= q_pos[b] + i. q [B, Sq, H, D], k/v
-    [B, Skv, Hkv, D]; q_pos scalar or [B]. Operands rounded to bf16,
-    scores and softmax in f32, probabilities rounded to bf16 before the
-    value product (the XLA body of ``sdp_attention``). Returns q.dtype."""
+    [B, Skv, Hkv, D] of any storage kind (int8/int4 with scales
+    [B, Skv, Hkv]); q_pos scalar or [B]. K/V are dequantized to bf16
+    (code times scale in f32), operands rounded to bf16, scores and
+    softmax in f32, probabilities rounded to bf16 before the value product
+    (the XLA body of ``sdp_attention``). Returns q.dtype."""
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = h // hkv
     f32, bf16 = torch.float32, torch.bfloat16
     qf = q.reshape(b, sq, hkv, g, d).to(bf16).to(f32)
-    kf = k.to(bf16).to(f32)
-    vf = v.to(bf16).to(f32)
+    kf = dequantize_kv(k, k_scale, bf16).to(f32)
+    vf = dequantize_kv(v, v_scale, bf16).to(f32)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
     pos = torch.as_tensor(q_pos, device=q.device).to(torch.int64)
     k_ids = torch.arange(skv, device=q.device)
@@ -61,47 +135,50 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, sq, h, d).to(q.dtype)
 
 
-def kernel_geometry_ok(q: torch.Tensor, k: torch.Tensor) -> bool:
-    """The shared gate of both attention kernels (``attention_geometry_ok``
-    for the bf16 cache) plus the CUDA kernels' own group and head-dim
-    limits."""
+def kernel_geometry_ok(q: torch.Tensor, k: torch.Tensor,
+                       k_scale: Optional[torch.Tensor] = None) -> bool:
+    """The shared gate of both attention kernels (``attention_geometry_ok``)
+    plus the CUDA kernels' own group and head-dim limits."""
     h, hd = q.shape[2], q.shape[3]
     s, hkv = k.shape[1], k.shape[2]
     return (h % hkv == 0 and h // hkv <= MAX_GROUP and hd % 64 == 0
             and hd <= MAX_HEAD_DIM and s % 128 == 0
-            and k.dtype == torch.bfloat16)
+            and kv_operands_ok(hd, k, k_scale))
 
 
-def decode_attention_supported(q: torch.Tensor, k: torch.Tensor) -> bool:
+def decode_attention_supported(q: torch.Tensor, k: torch.Tensor,
+                               k_scale: Optional[torch.Tensor] = None
+                               ) -> bool:
     g, slices = q.shape[2] // k.shape[2], -(-q.shape[3] // 128)
-    return q.shape[1] == 1 and kernel_geometry_ok(q, k) \
+    return q.shape[1] == 1 and kernel_geometry_ok(q, k, k_scale) \
         and (g, slices) in _DECODE_BUILT
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     q_pos, scale: float) -> torch.Tensor:
-    """B3: q [B, 1, H, hd] against the bf16 cache k/v [B, S, Hkv, hd] at
+                     q_pos, scale: float,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """B3: q [B, 1, H, hd] against the cache k/v [B, S, Hkv, hd] (codes
+    of any storage kind; int8/int4 with f32 scales [B, S, Hkv]) at
     positions q_pos (scalar or [B]). Returns bf16 [B, 1, H, hd]."""
     if q.device.type == "cpu":
-        return plain_attention(q, k, v, q_pos, scale)
+        return plain_attention(q, k, v, q_pos, scale, k_scale, v_scale)
     b, sq, h, hd = q.shape
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("decode_attention: q, k, v must share one CUDA "
                          "device")
     if sq != 1:
         raise ValueError(f"decode_attention: Sq must be 1, got {sq}")
-    if k.shape != v.shape or k.dim() != 4 or k.shape[0] != b \
-            or k.shape[3] != hd:
-        raise ValueError(f"decode_attention: cache shapes {tuple(k.shape)}, "
-                         f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
-    if not decode_attention_supported(q, k):
+    if k.dim() != 4 or k.shape[0] != b:
+        raise ValueError(f"decode_attention: cache shape {tuple(k.shape)} "
+                         f"does not fit q {tuple(q.shape)}")
+    kind = check_kv_operands("decode_attention", hd, k, v, k_scale, v_scale)
+    if not decode_attention_supported(q, k, k_scale):
         raise ValueError(
             f"decode_attention: unsupported geometry H={h} Hkv={k.shape[2]} "
             f"hd={hd} S={k.shape[1]} dtype={k.dtype}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16 or not t.is_contiguous():
-            raise ValueError(f"decode_attention: {name} must be contiguous "
-                             "bfloat16")
+    if q.dtype != torch.bfloat16 or not q.is_contiguous():
+        raise ValueError("decode_attention: q must be contiguous bfloat16")
     pos = _positions(q_pos, b, q.device)
     out = torch.empty_like(q)
     # per (slot, head): P partial (m, l, acc[hd]) of the split-S pass
@@ -109,9 +186,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ws = torch.empty((b * h * parts * (hd + 2),), dtype=torch.float32,
                      device=q.device)
     err = _native.kernel("decode_attention")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), b, k.shape[1], h, k.shape[2], hd,
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
+        _ptr(v_scale), pos.data_ptr(), out.data_ptr(), ws.data_ptr(), b,
+        k.shape[1], h, k.shape[2], hd, kind, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _native.check("decode_attention", err)
-    LAUNCHES["decode_attention"] += 1
+    LAUNCHES[counter("decode_attention", kv_kind(k))] += 1
     return out

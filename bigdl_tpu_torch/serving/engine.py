@@ -1,15 +1,20 @@
 """Continuous-batching serving engine, lean port of
-``bigdl_tpu/serving/engine.py::LLMEngine`` (slab and bf16 paged KV modes).
+``bigdl_tpu/serving/engine.py::LLMEngine`` (slab and paged KV modes, every
+KV storage kind).
 
 Kept: the public surface of ``SamplingParams`` (max_tokens, temperature,
 top_k, top_p, stop_token_ids, seed), ``RequestOutput`` and
 ``EngineConfig`` (max_batch, max_seq, prefill_bucket, prefill_chunk,
-kv_page_size, kv_pages, prefix_sharing), and ``add_request`` / ``step`` /
-``get_outputs`` / ``has_unfinished`` / ``generate`` /
-``reset_prefix_cache``. Inside:
+kv_page_size, kv_pages, prefix_sharing, kv_cache_dtype), and
+``add_request`` / ``step`` / ``get_outputs`` / ``has_unfinished`` /
+``generate`` / ``reset_prefix_cache``. Inside:
 
-- slab mode: one batched bf16 KV cache [L, max_batch, max_seq, Hkv, hd]
-  with a per-slot position vector; a slot is a sequence's home for its
+- KV storage (``kv_cache_dtype``): bf16, fp8_e5m2, or int8 / int4 codes
+  with f32 scale planes that move wherever their codes move (splice,
+  prefix seeding, copy-on-write); int8/int4 need a family with
+  ``SUPPORTS_SCALED_KV``;
+- slab mode: one batched KV cache [L, max_batch, max_seq, Hkv, hd] with a
+  per-slot position vector; a slot is a sequence's home for its
   lifetime;
 - paged mode (``kv_page_size`` > 0): one [L, P, page_size, Hkv, hd] arena
   per K/V plane, host block tables [max_batch, max_seq / page_size] with
@@ -29,8 +34,8 @@ kv_page_size, kv_pages, prefix_sharing), and ``add_request`` / ``step`` /
   the JAX engine's up to one-ulp ties of its logs.
 
 Not ported yet: penalties, logprobs, n/best_of, the host prefix cache,
-preemption, overload control, deadlines, fault handling, migration,
-observability, and int8/int4/fp8 KV.
+preemption, overload control, deadlines, fault handling, migration and
+observability.
 """
 
 from __future__ import annotations
@@ -46,7 +51,8 @@ import torch
 from bigdl_tpu_torch.config import (flags, resolve_kv_page_size,
                                     resolve_kv_pages, resolve_prefix_sharing)
 from bigdl_tpu_torch.ops import random as rnd
-from bigdl_tpu_torch.ops.kvcache import KVCache
+from bigdl_tpu_torch.ops.kvcache import (SCALED_KV_DTYPES, KVCache,
+                                         raw_view, resolve_kv_cache_dtype)
 from bigdl_tpu_torch.ops.paged import (NULL_PAGE, cow_copy_pages,
                                        gather_pages_dense, paged_cache_bytes)
 from bigdl_tpu_torch.serving.pagepool import PagePool, RadixCache
@@ -98,6 +104,9 @@ class EngineConfig:
     # "auto" / "on" share full-page prompt prefixes copy-on-write across
     # requests through a radix tree; "off" keeps every page private
     prefix_sharing: Optional[str] = None
+    # KV storage: "bf16", "fp8_e5m2", "int8" or "int4" (None defers to
+    # $BIGDL_TPU_TORCH_KV_CACHE_DTYPE, default bf16)
+    kv_cache_dtype: Optional[str] = None
 
 
 class _Slot:
@@ -195,6 +204,16 @@ class LLMEngine:
         sharing = resolve_prefix_sharing(
             ce.prefix_sharing if ce.prefix_sharing is not None
             else env.prefix_sharing)
+        self.kv_cache_dtype = resolve_kv_cache_dtype(
+            ce.kv_cache_dtype if ce.kv_cache_dtype is not None
+            else env.kv_cache_dtype)
+        if (self.kv_cache_dtype in SCALED_KV_DTYPES
+                and not getattr(self.family, "SUPPORTS_SCALED_KV", False)):
+            raise ValueError(
+                f"kv_cache_dtype={self.kv_cache_dtype!r} needs a family "
+                f"that threads scale planes through its forward; "
+                f"{getattr(self.family, '__name__', self.family)!r} does "
+                "not (SUPPORTS_SCALED_KV)")
         self._paged = page_size > 0
         self._page_size = page_size
         self.pool: Optional[PagePool] = None
@@ -214,7 +233,7 @@ class LLMEngine:
             self._num_pages = n_pages or ce.max_batch * self._pages_per_seq + 1
             self.cache = self.family.new_paged_cache(
                 self.cfg, self._num_pages, page_size, ce.max_batch,
-                device=self.device)
+                device=self.device, kv_cache_dtype=self.kv_cache_dtype)
             self.pool = PagePool(self._num_pages, page_size)
             if sharing != "off":
                 self.radix = RadixCache(self.pool)
@@ -230,7 +249,7 @@ class LLMEngine:
         else:
             self.cache = self.family.new_cache(
                 self.cfg, ce.max_batch, ce.max_seq, per_slot_pos=True,
-                device=self.device)
+                device=self.device, kv_cache_dtype=self.kv_cache_dtype)
         self.slots = [_Slot() for _ in range(ce.max_batch)]
         self.waiting: "collections.deque[Request]" = collections.deque()
         self._outputs: Dict[str, List[RequestOutput]] = {}
@@ -351,8 +370,9 @@ class LLMEngine:
                 if adm is None:
                     return
                 consumed, shared, new = adm
-            cache1 = self.family.new_cache(self.cfg, 1, alloc,
-                                           device=self.device)
+            cache1 = self.family.new_cache(
+                self.cfg, 1, alloc, device=self.device,
+                kv_cache_dtype=self.kv_cache_dtype)
             if consumed:
                 self._seed_pages(cache1, shared, consumed)
             a = self._admitting = _Admission(req, free, consumed, cache1,
@@ -394,12 +414,19 @@ class LLMEngine:
         self._check_done(a.slot_idx)
         self._admitting = None
 
+    @staticmethod
+    def _planes(cache) -> List[torch.Tensor]:
+        """A cache's code planes and, for int8/int4, its scale planes, in
+        one order (fp8 as bytes, which every indexing op takes)."""
+        return [raw_view(p) for p in (cache.k, cache.v, cache.k_scale,
+                                      cache.v_scale) if p is not None]
+
     def _insert(self, cache1: KVCache, slot: int, plen: int) -> None:
-        """Splice a finished admission's K/V into the batched cache."""
-        max_s = self.cache.k.shape[2]
-        n = min(cache1.k.shape[2], max_s)
-        self.cache.k[:, slot, :n] = cache1.k[:, 0, :n]
-        self.cache.v[:, slot, :n] = cache1.v[:, 0, :n]
+        """Splice a finished admission's K/V (and scales) into the batched
+        cache."""
+        n = min(cache1.k.shape[2], self.cache.k.shape[2])
+        for dst, src in zip(self._planes(self.cache), self._planes(cache1)):
+            dst[:, slot, :n] = src[:, 0, :n]
         self.cache.pos[slot] = plen
 
     # -- paged KV bookkeeping (kv_page_size > 0) ----------------------------
@@ -455,11 +482,13 @@ class LLMEngine:
                     consumed: int) -> None:
         """Copy the shared prefix pages into positions [0, consumed) of a
         fresh private cache, which then prefills from `consumed`."""
-        k, v = gather_pages_dense(
-            self.cache.k, self.cache.v,
-            torch.tensor(pages, dtype=torch.int64, device=self.device))
-        cache1.k[:, :, :consumed] = k
-        cache1.v[:, :, :consumed] = v
+        c = self.cache
+        dense = gather_pages_dense(
+            c.k, c.v, torch.tensor(pages, dtype=torch.int64,
+                                   device=self.device),
+            c.k_scale, c.v_scale)
+        for dst, src in zip(self._planes(cache1), dense):
+            dst[:, :, :consumed] = raw_view(src)
         cache1.pos.fill_(consumed)
 
     def _paged_insert(self, a: _Admission, plen: int) -> None:
@@ -485,8 +514,9 @@ class LLMEngine:
         t = np.arange(cap)
         phys = torch.from_numpy(write_row[t // ps]).to(self.device)
         off = torch.from_numpy(t % ps).to(self.device)
-        self.cache.k[:, phys, off] = a.cache1.k[:, 0, :cap]
-        self.cache.v[:, phys, off] = a.cache1.v[:, 0, :cap]
+        for dst, src in zip(self._planes(self.cache),
+                            self._planes(a.cache1)):
+            dst[:, phys, off] = src[:, 0, :cap]
         self.cache.pos[idx] = plen
         if self.radix is not None:
             n_prompt_pages = -(-plen // ps)
@@ -532,7 +562,8 @@ class LLMEngine:
                             device=self.device)
         dsts = torch.tensor([p[3] for p in pairs], dtype=torch.int64,
                             device=self.device)
-        cow_copy_pages(self.cache.k, self.cache.v, srcs, dsts)
+        c = self.cache
+        cow_copy_pages(c.k, c.v, srcs, dsts, c.k_scale, c.v_scale)
         for i, lp, src, dst in pairs:
             self._bt_np[i, lp] = dst
             self.pool.decref(src)

@@ -14,7 +14,10 @@ Phases, all of them on every run, each printing one JSON line:
    of the kernel, the plain version and a PyTorch library yardstick, and
    the least time the card could take (bytes / 3.35 TB/s or flops / 989
    TFLOP/s). B5 must also equal B3 bit for bit on the same rows laid out
-   densely, and B6 each tile of B2 at B2's K split.
+   densely, and B6 each tile of B2 at B2's K split. B3, B4 and B5 run
+   again over fp8_e5m2, int8 and int4 caches (codes and f32 scales; the
+   yardstick dequantizes, then calls SDPA), timed at the main path's
+   shapes, B5 bit-equal to B3 for each kind.
 4. reference: a 2-layer cut of the full-width model, prefill + one decode
    step on the card (kernels) against the same on the CPU (plain).
 5. engine: seeded full-width Llama-2-7B, sym_int4 linears, merged
@@ -32,23 +35,37 @@ Phases, all of them on every run, each printing one JSON line:
    token in a 129-page arena (the bytes of the 8-slot slab) at max_batch
    32: all 32 must be active at once, the radix must hit 31 times, the
    pool must never run dry, and copy-on-write must copy.
-8. model_moe: the Llama model is freed, and full-width, full-depth
+8. reference_kv: the reference cut over an int8 and an int4 KV cache.
+9. engine_kv: the engine phase's eight requests through the slab engine
+   with a fp8_e5m2, an int8 and an int4 KV cache (one engine each, run
+   twice), then the four shared-prefix requests: every request finishes,
+   streams repeat, the kind's B3 and B4 bodies launch, and the cache
+   holds the bytes of the formula; peak memory, step time, TTFT, a
+   profiled decode window and agreement with the bf16 streams are
+   reported.
+10. engine_paged_kv: the shared-prefix requests through the paged engine
+   with fp8_e5m2, int8 and int4 pages (kv_page_size 128, sharing on):
+   streams must equal the slab engine's at the same kind, the radix must
+   hit 3 times, copy-on-write must copy, and B5's body for the kind must
+   launch.
+11. model_moe: the Llama model is freed, and full-width, full-depth
    Mixtral-8x7B (sym_int4 linears, random weights from seed 0) is built
    on the card.
-9. reference_moe: a 2-layer cut, 8 prompts of 32 tokens then one decode
+12. reference_moe: a 2-layer cut, 8 prompts of 32 tokens then one decode
    step (both through B6) on the card, against the same on the CPU with
    the ragged dispatch on B6's plain version.
-10. engine_moe: the engine phase's eight requests through ``LLMEngine``
+13. engine_moe: the engine phase's eight requests through ``LLMEngine``
    serving Mixtral, twice: every request finishes, greedy and seeded
    streams repeat, B1-B4 and B6 launch, B6 in prefill and in decode; then
    a profiled decode window.
-11. engine_moe_gather: four greedy requests at max_batch 4, so decode
+14. engine_moe_gather: four greedy requests at max_batch 4, so decode
    gathers the chosen experts (N * k = 8 <= E): streams repeat, and B1
    launches during decode-only steps while B6 does not.
 
-Then a ``kernels`` summary line, the card's name and power limit, and the
-final ``{"ok": true, "device": ...}`` line. Any failed check exits non-zero
-before the final line is printed. Imports torch, numpy and the port only.
+Then a ``kernels`` summary line (every kernel, each quantized-KV body of
+B3, B4 and B5 as an entry of its own), the card's name and power limit,
+and the final ``{"ok": true, "device": ...}`` line. Any failed check exits
+non-zero before the final line is printed. Imports torch, numpy and the port only.
 """
 
 from __future__ import annotations
@@ -96,6 +113,24 @@ KERNELS = {
         replaces="bigdl_tpu/ops/pallas/moe_dispatch.py:90"),
 }
 
+# the quantized-KV bodies of B3, B4 and B5: each storage kind counts its own
+# launches (``<name>_<kind>``); fp8_e5m2 replaces the bf16 body's e5m2
+# input, int8 and int4 the scaled body
+QUANT_KV_KINDS = ("fp8_e5m2", "int8", "int4")
+_KV_BODIES = {
+    "decode_attention": ("decode_attention.py:80", "decode_attention.py:127"),
+    "prefill_attention": ("prefill_attention.py:34",
+                          "prefill_attention.py:82"),
+    "paged_decode_attention": ("paged_decode_attention.py:40",
+                               "paged_decode_attention.py:84"),
+}
+for _base, (_fp8, _scaled) in _KV_BODIES.items():
+    for _kind in QUANT_KV_KINDS:
+        KERNELS[f"{_base}_{_kind}"] = dict(
+            source=KERNELS[_base]["source"],
+            replaces="bigdl_tpu/ops/pallas/"
+            + (_fp8 if _kind == "fp8_e5m2" else _scaled))
+
 MIXTRAL_EXPERT_LINEARS = {     # [K, N] of each expert projection
     "gate_up": (4096, 14336),
     "down": (14336, 4096),
@@ -125,7 +160,10 @@ class Timer:
     """Per-launch CUDA-event timing with the 50 MB L2 flushed before each
     launch (the main path meets its weights and caches cold). A spin on
     the card after the flush keeps it busy while the host enqueues the
-    call, so the events time the device, not the Python wrapper."""
+    call, so the events time the device, not the Python wrapper. The
+    median of the launches is kept: a host stall longer than the spin
+    (the host CPU is shared) lands in one launch's events, and a mean
+    took it in (one B6 case read 0.88 ms against its usual 0.70)."""
 
     def __init__(self, device):
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
@@ -133,7 +171,7 @@ class Timer:
     def ms(self, fn, iters: int = 10) -> float:
         fn()
         torch.cuda.synchronize()
-        total = 0.0
+        times = []
         for _ in range(iters):
             self.flush.zero_()
             torch.cuda._sleep(1_000_000)
@@ -143,8 +181,8 @@ class Timer:
             fn()
             end.record()
             end.synchronize()
-            total += start.elapsed_time(end)
-        return total / iters
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
 
 
 def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -220,7 +258,29 @@ def _matmul_case(timer, name, x, w, kernel_fn, iters):
     return rec
 
 
-def _attn_bounds(q, k, pos_list, sq):
+_CODE_BYTES = {"bf16": 2.0, "fp8_e5m2": 1.0, "int8": 1.0, "int4": 0.5}
+
+
+def _kv_row_bytes(hd, kind):
+    """Bytes one (row, kv head) of K or V stores: its codes, and its f32
+    scale for int8/int4."""
+    return hd * _CODE_BYTES[kind] + (4 if kind in ("int8", "int4") else 0)
+
+
+def _kv_codes(x, kind):
+    """Random f32 rows -> the cache's codes of storage `kind` (and the f32
+    scales of int8/int4), as the engine's appends store them."""
+    from bigdl_tpu_torch.ops.kvcache import quantize_kv
+
+    xb = x.to(torch.bfloat16)
+    if kind == "bf16":
+        return xb, None
+    if kind == "fp8_e5m2":
+        return xb.to(torch.float8_e5m2), None
+    return quantize_kv(xb, kind)
+
+
+def _attn_bounds(q, k, pos_list, sq, kind="bf16"):
     b, _, h, hd = q.shape
     s, hkv = k.shape[1], k.shape[2]
     vis_rows = 0          # K/V rows read once per (slot, kv head)
@@ -228,15 +288,18 @@ def _attn_bounds(q, k, pos_list, sq):
     for p in pos_list:
         vis_rows += min(s, p + sq)
         pairs += sum(min(s, p + i + 1) for i in range(sq))
-    nbytes = 2 * q.numel() * 2 + vis_rows * hkv * hd * 2 * 2
+    nbytes = 2 * q.numel() * 2 + vis_rows * hkv * _kv_row_bytes(hd, kind) * 2
     flops = 4.0 * hd * h * pairs
     return bound_ms(nbytes, flops)
 
 
-def _sdpa(q, k, v, pos_list, sq):
+def _sdpa(q, k, v, pos_list, sq, ks=None, vs=None):
     """One torch.nn.functional.scaled_dot_product_attention call computing
-    the same causal attention (timing yardstick only)."""
+    the same causal attention, after dequantizing a quantized cache
+    (timing yardstick only)."""
     import torch.nn.functional as F
+
+    from bigdl_tpu_torch.ops.kvcache import dequantize_kv
 
     b, _, h, hd = q.shape
     s, hkv = k.shape[1], k.shape[2]
@@ -244,9 +307,11 @@ def _sdpa(q, k, v, pos_list, sq):
     qid = torch.tensor(pos_list, device=q.device)[:, None] + torch.arange(
         sq, device=q.device)[None]
     mask = (kid[None, None, :] <= qid[:, :, None])[:, None]   # [B,1,Sq,S]
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    qt = q.transpose(1, 2)
 
     def call():
+        kt = dequantize_kv(k, ks).transpose(1, 2)
+        vt = dequantize_kv(v, vs).transpose(1, 2)
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                               enable_gqa=(h != hkv))
 
@@ -257,73 +322,87 @@ def _sdpa(q, k, v, pos_list, sq):
     return call
 
 
-def _attn_case(timer, randn, name, b, sq, h, hkv, hd, s, pos_list, timed):
-    """One attention kernel against the plain version on the same inputs;
-    decode takes per-slot positions, prefill one scalar position."""
-    from bigdl_tpu_torch.ops.cuda.decode_attention import (decode_attention,
+def _attn_case(timer, randn, name, b, sq, h, hkv, hd, s, pos_list, timed,
+               kind="bf16"):
+    """One attention kernel against the plain version on the same inputs
+    (a cache of storage `kind`); decode takes per-slot positions, prefill
+    one scalar position."""
+    from bigdl_tpu_torch.ops.cuda.decode_attention import (counter,
+                                                           decode_attention,
                                                            plain_attention)
     from bigdl_tpu_torch.ops.cuda.prefill_attention import prefill_attention
 
     fn = decode_attention if name == "decode_attention" else \
         prefill_attention
     q = randn(b, sq, h, hd).to(torch.bfloat16)
-    kc = randn(b, s, hkv, hd).to(torch.bfloat16)
-    vc = randn(b, s, hkv, hd).to(torch.bfloat16)
+    kc, ks = _kv_codes(randn(b, s, hkv, hd), kind)
+    vc, vs = _kv_codes(randn(b, s, hkv, hd), kind)
     per_slot = name == "decode_attention"
     pos = torch.tensor(pos_list if per_slot else pos_list[0],
                        dtype=torch.int32, device=q.device)
     scale = hd ** -0.5
-    got = fn(q, kc, vc, pos, scale)
-    want = plain_attention(q, kc, vc, pos, scale)
+    got = fn(q, kc, vc, pos, scale, ks, vs)
+    want = plain_attention(q, kc, vc, pos, scale, ks, vs)
     torch.cuda.synchronize()
-    b_ms, b_by = _attn_bounds(q, kc, pos_list * (b // len(pos_list)), sq)
-    rec = {"kernel": name, "B": b, "Sq": sq, "H": h, "Hkv": hkv, "hd": hd,
-           "S": s, "pos": pos_list if per_slot else pos_list[0],
+    b_ms, b_by = _attn_bounds(q, kc, pos_list * (b // len(pos_list)), sq,
+                              kind)
+    rec = {"kernel": counter(name, kind), "kv": kind, "B": b, "Sq": sq,
+           "H": h, "Hkv": hkv, "hd": hd, "S": s,
+           "pos": pos_list if per_slot else pos_list[0],
            "max_abs_err": max_err(got, want), "tol": ATTN_TOL,
            "ok": allclose(got, want, ATTN_TOL),
            "bound_ms": b_ms, "bound_by": b_by}
     if timed:
-        lib = _sdpa(q, kc, vc, pos_list * (b // len(pos_list)), sq)
-        rec.update(ms=timer.ms(lambda: fn(q, kc, vc, pos, scale)),
+        lib = _sdpa(q, kc, vc, pos_list * (b // len(pos_list)), sq, ks, vs)
+        rec.update(ms=timer.ms(lambda: fn(q, kc, vc, pos, scale, ks, vs)),
                    plain_ms=timer.ms(
-                       lambda: plain_attention(q, kc, vc, pos, scale)),
+                       lambda: plain_attention(q, kc, vc, pos, scale, ks,
+                                               vs)),
                    library_ms=timer.ms(lib) if lib else None)
     return rec
 
 
-def _paged_case(timer, randn, gen, b, h, hkv, hd, ps, np_, pos_list, timed):
-    """B5 against its plain version over a random page permutation, and
-    against B3 over the same rows gathered densely (must be bit-equal).
-    The last row is idle: an all-null table row, pos past NP * ps."""
+def _paged_case(timer, randn, gen, b, h, hkv, hd, ps, np_, pos_list, timed,
+                kind="bf16"):
+    """B5 against its plain version over a random page permutation of an
+    arena of storage `kind`, and against B3 over the same rows (and
+    scales) gathered densely (must be bit-equal). The last row is idle: an
+    all-null table row, pos past NP * ps."""
     import torch.nn.functional as F
 
-    from bigdl_tpu_torch.ops.cuda.decode_attention import decode_attention
+    from bigdl_tpu_torch.ops.cuda.decode_attention import (counter,
+                                                           decode_attention)
     from bigdl_tpu_torch.ops.cuda.paged_decode_attention import (
         paged_decode_attention, plain_paged_attention)
+    from bigdl_tpu_torch.ops.kvcache import dequantize_kv
     from bigdl_tpu_torch.ops.paged import _gather_dense
 
     dev = gen.device
     p_ = b * np_ + 1
     q = randn(b, 1, h, hd).to(torch.bfloat16)
-    ak = randn(p_, ps, hkv, hd).to(torch.bfloat16)
-    av = randn(p_, ps, hkv, hd).to(torch.bfloat16)
+    ak, aks = _kv_codes(randn(p_, ps, hkv, hd), kind)
+    av, avs = _kv_codes(randn(p_, ps, hkv, hd), kind)
     perm = torch.randperm(p_ - 1, generator=gen, device=dev) + 1
     bt = perm[:b * np_].reshape(b, np_).to(torch.int32).contiguous()
     bt[-1] = 0
     pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
     scale = hd ** -0.5
-    got = paged_decode_attention(q, ak, av, bt, pos, scale)
-    want = plain_paged_attention(q, ak, av, bt, pos, scale)
-    kd = _gather_dense(ak, bt).contiguous()
-    vd = _gather_dense(av, bt).contiguous()
-    b3 = decode_attention(q, kd, vd, pos, scale)
+
+    def dense(t):
+        return None if t is None else _gather_dense(t, bt).contiguous()
+
+    got = paged_decode_attention(q, ak, av, bt, pos, scale, aks, avs)
+    want = plain_paged_attention(q, ak, av, bt, pos, scale, aks, avs)
+    kd, vd, ksd, vsd = dense(ak), dense(av), dense(aks), dense(avs)
+    b3 = decode_attention(q, kd, vd, pos, scale, ksd, vsd)
     torch.cuda.synchronize()
     s = np_ * ps
     vis = [min(p + 1, s) for p in pos_list]
-    nbytes = (2 * q.numel() * 2 + sum(vis) * hkv * hd * 2 * 2
+    nbytes = (2 * q.numel() * 2 + sum(vis) * hkv * _kv_row_bytes(hd, kind) * 2
               + bt.numel() * 4 + pos.numel() * 4)
     b_ms, b_by = bound_ms(nbytes, 4.0 * hd * h * sum(vis))
-    rec = {"kernel": "paged_decode_attention", "B": b, "H": h, "Hkv": hkv,
+    rec = {"kernel": counter("paged_decode_attention", kind), "kv": kind,
+           "B": b, "H": h, "Hkv": hkv,
            "hd": hd, "ps": ps, "NP": np_, "P": p_, "pos": pos_list,
            "max_abs_err": max_err(got, want), "tol": ATTN_TOL,
            "equal_to_b3": bool(torch.equal(got, b3)),
@@ -336,12 +415,12 @@ def _paged_case(timer, randn, gen, b, h, hkv, hd, ps, np_, pos_list, timed):
         qt = q.transpose(1, 2)
 
         def library():
-            # two calls: the dense gather, then one SDPA
-            kg = _gather_dense(ak, bt).transpose(1, 2)
-            vg = _gather_dense(av, bt).transpose(1, 2)
-            return F.scaled_dot_product_attention(qt, kg, vg,
-                                                  attn_mask=mask,
-                                                  enable_gqa=(h != hkv))
+            # the dense gather (and dequantization), then one SDPA
+            kg = dequantize_kv(_gather_dense(ak, bt), dense(aks))
+            vg = dequantize_kv(_gather_dense(av, bt), dense(avs))
+            return F.scaled_dot_product_attention(
+                qt, kg.transpose(1, 2), vg.transpose(1, 2), attn_mask=mask,
+                enable_gqa=(h != hkv))
 
         try:
             library()
@@ -349,10 +428,11 @@ def _paged_case(timer, randn, gen, b, h, hkv, hd, ps, np_, pos_list, timed):
             library = None
         rec.update(
             ms=timer.ms(lambda: paged_decode_attention(q, ak, av, bt, pos,
-                                                       scale)),
-            b3_ms=timer.ms(lambda: decode_attention(q, kd, vd, pos, scale)),
+                                                       scale, aks, avs)),
+            b3_ms=timer.ms(lambda: decode_attention(q, kd, vd, pos, scale,
+                                                    ksd, vsd)),
             plain_ms=timer.ms(lambda: plain_paged_attention(
-                q, ak, av, bt, pos, scale)),
+                q, ak, av, bt, pos, scale, aks, avs)),
             library_ms=timer.ms(library) if library else None)
     return rec
 
@@ -617,6 +697,36 @@ def phase_kernels(timer):
     emit({"phase": "kernels", **rec})
     del w
 
+    # the quantized-KV bodies of B3, B4 and B5 (fp8_e5m2, int8, int4): timed
+    # at the main path's shapes (B5 must equal B3 bit for bit on the same
+    # codes and scales), checked only at the other head dims and groups
+    for kind in QUANT_KV_KINDS:
+        pos_list = [int(p) for p in rng.integers(1, 2048, 8)]
+        pos_list[0] = 2047
+        small = [255, 3, 130, 0]
+        cases = [("decode_attention", 8, 1, 32, 32, 128, 2048, pos_list,
+                  True),
+                 ("decode_attention", 4, 1, 8, 2, 64, 256, small, False),
+                 ("decode_attention", 4, 1, 8, 2, 256, 256, small, False),
+                 ("prefill_attention", 1, 256, 32, 32, 128, 2048, [256],
+                  True),
+                 ("prefill_attention", 1, 256, 32, 8, 128, 2048, [256],
+                  False),
+                 ("prefill_attention", 2, 128, 8, 2, 64, 384, [128], False),
+                 ("prefill_attention", 2, 128, 8, 2, 256, 384, [128],
+                  False)]
+        for case in cases:
+            rec = _attn_case(timer, randn, *case, kind=kind)
+            records.append(rec)
+            emit({"phase": "kernels", **rec})
+        paged_pos = list(pos_list)
+        paged_pos[-1] = 2048 + 37
+        for case in ((8, 32, 32, 128, 128, 16, paged_pos, True),
+                     (4, 8, 2, 64, 128, 2, [255, 3, 130, 261], False)):
+            rec = _paged_case(timer, randn, gen, *case, kind=kind)
+            records.append(rec)
+            emit({"phase": "kernels", **rec})
+
     bad = [r for r in records if not r["ok"]]
     require(not bad, f"{len(bad)} kernel case(s) disagree with their plain "
             f"version: {bad[:3]}")
@@ -650,12 +760,20 @@ def _to_device(params, device):
     return mv(params)
 
 
-def phase_reference(params, cfg):
-    """2-layer cut: prefill 100 tokens (B2, B4) + one decode step (B1, B3)
-    on the card against the plain versions on the CPU."""
+def phase_reference(params, cfg, kind="bf16"):
+    """2-layer cut: prefill 128 tokens (B2, B4) + one decode step (B1, B3)
+    on the card against the plain versions on the CPU, over a KV cache of
+    storage `kind` (phase ``reference_kv`` for the quantized kinds).
+    Rounding to a code is discontinuous: a K or V value within the two
+    devices' bf16 noise of a rounding edge takes neighbouring codes on
+    each, one step of amax / 7 apart at int4. So for int8/int4 the CPU run
+    stores the card's codes and scales (``quantize_kv`` replayed), which
+    holds the arithmetic of every layer to the tolerance; the codes the
+    CPU's own quantization would have stored otherwise are counted."""
     import dataclasses
 
     from bigdl_tpu_torch.models import llama
+    from bigdl_tpu_torch.ops import kvcache
 
     cut_cfg = dataclasses.replace(cfg, num_hidden_layers=2)
     gpu_params = _cut_params(params, 2)
@@ -663,14 +781,38 @@ def phase_reference(params, cfg):
     rng = np.random.default_rng(3)
     prompt = torch.tensor(rng.integers(0, cfg.vocab_size, (1, 128)))
     nxt = torch.tensor(rng.integers(0, cfg.vocab_size, (1, 1)))
+    quantize, card_codes, flips = kvcache.quantize_kv, [], [0, 0, 0]
+
+    def record(x, name):
+        codes, scales = quantize(x, name)
+        card_codes.append((codes.cpu(), scales.cpu()))
+        return codes, scales
+
+    def replay(x, name):
+        own, _ = quantize(x, name)
+        codes, scales = card_codes[flips[2]]
+        flips[0] += int((own != codes).sum())      # bytes (int4: two codes)
+        flips[1] += codes.numel()
+        flips[2] += 1
+        return codes, scales
+
     out = {}
     for dev, p in (("cuda", gpu_params), ("cpu", cpu_params)):
-        cache = llama.new_cache(cut_cfg, 1, 256, device=dev)
-        with torch.no_grad():
-            lg1, cache = llama.forward(p, cut_cfg, prompt.to(dev), cache)
-            lg2, cache = llama.forward(p, cut_cfg, nxt.to(dev), cache)
+        kvcache.quantize_kv = record if dev == "cuda" else replay
+        try:
+            cache = llama.new_cache(cut_cfg, 1, 256, device=dev,
+                                    kv_cache_dtype=kind)
+            with torch.no_grad():
+                lg1, cache = llama.forward(p, cut_cfg, prompt.to(dev), cache)
+                lg2, cache = llama.forward(p, cut_cfg, nxt.to(dev), cache)
+        finally:
+            kvcache.quantize_kv = quantize
         out[dev] = (lg1.float().cpu(), lg2.float().cpu())
-    res = {"phase": "reference", "layers": 2, "prompt": 128}
+    res = {"phase": "reference" if kind == "bf16" else "reference_kv",
+           "kv": kind, "layers": 2, "prompt": 128}
+    if kind in ("int8", "int4"):
+        res.update(quantize_calls=flips[2], code_bytes=flips[1],
+                   code_bytes_stored_otherwise_on_cpu=flips[0])
     ok = True
     for i, name in enumerate(("prefill", "decode")):
         got, want = out["cuda"][i], out["cpu"][i]
@@ -685,7 +827,8 @@ def phase_reference(params, cfg):
                      "finite": fin, "top1_agree": top1, "ok": good}
         ok &= good
     emit(res)
-    require(ok, "card forward disagrees with the CPU plain forward")
+    require(ok, f"card forward disagrees with the CPU plain forward ({kind} "
+            f"KV cache)")
 
 
 def _run_requests(eng, requests):
@@ -892,8 +1035,8 @@ def phase_engine(params, cfg, max_new=32):
     require(in_vocab, "token outside the vocabulary")
     require(greedy_same, "greedy requests did not repeat")
     require(seeded_same, "seeded requests did not repeat")
-    missing = [k for k, v in counts.items() if v <= 0
-               and k not in ("paged_decode_attention", "ragged_expert_matmul")]
+    missing = [k for k in ("dequant_gemv", "dequant_gemm", "decode_attention",
+                           "prefill_attention") if counts[k] <= 0]
     require(not missing, f"kernels never launched on the main path: "
             f"{missing}")
     shared = _shared_prefix_requests(cfg, max_new)
@@ -1003,6 +1146,131 @@ def phase_prefix_burst(params, cfg, n=32, max_new=64):
     require(counts["paged_decode_attention"] > 0,
             "burst: paged decode attention never launched")
     return counts
+
+
+def _prefix_agree(toks, ref):
+    """Per request, how many leading tokens equal the reference stream."""
+    out = {}
+    for r, t in toks.items():
+        n = 0
+        while n < min(len(t), len(ref[r])) and t[n] == ref[r][n]:
+            n += 1
+        out[r] = n
+    return out
+
+
+def phase_engine_kv(params, cfg, bf16_toks, max_new=32):
+    """The engine phase's eight requests through the slab engine with a
+    quantized KV cache, one engine per storage kind, run twice; then the
+    shared-prefix requests, whose streams the paged engine must repeat.
+    Every request finishes, greedy and seeded streams repeat, the kind's
+    B3 and B4 bodies launch, and the cache holds the bytes of the formula.
+    Agreement with the bf16 engine's streams is reported, not gated: a
+    quantized cache changes the logits."""
+    from bigdl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from bigdl_tpu_torch.ops.kvcache import kv_cache_bytes, kv_cache_nbytes
+    from bigdl_tpu_torch.serving.engine import EngineConfig, LLMEngine
+    from bigdl_tpu_torch.utils.testing import SyntheticCausalLM
+
+    lens, requests = _engine_requests(cfg, max_new)
+    shared = _shared_prefix_requests(cfg, max_new)
+    model = SyntheticCausalLM(params, cfg)
+    total, shared_toks = {}, {}
+    for kind in QUANT_KV_KINDS:
+        eng = LLMEngine(model, EngineConfig(max_batch=8, max_seq=2048,
+                                            kv_cache_dtype=kind),
+                        device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        toks1, reasons1, ttft, perf = _run_requests(eng, requests)
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        toks2, reasons2, _, perf2 = _run_requests(eng, requests)
+        reset_launch_counts()
+        shared_toks[kind], shared_reasons, _, _ = _run_requests(eng, shared)
+        for k, v in launch_counts().items():
+            total[k] = total.get(k, 0) + v + counts[k]
+        kv = kv_cache_bytes(eng.cache)
+        want = kv_cache_nbytes(cfg.num_hidden_layers, 8, 2048,
+                               cfg.num_key_value_heads, cfg.hd, kind)
+        res = {"phase": "engine_kv", "kv": kind, "model": "llama2-7b",
+               "requests": len(requests), "prompt_lens": lens,
+               "max_new_tokens": max_new, "launches": counts,
+               "finish_reasons": reasons1, "ttft_s": ttft,
+               "max_memory_allocated": peak, "kv_cache_bytes": kv,
+               "kv_cache_bytes_formula": want, **perf, "repeat_run": perf2,
+               "tokens_equal_to_bf16": _prefix_agree(toks1, bf16_toks),
+               "streams_equal_to_bf16": sum(toks1[r] == bf16_toks[r]
+                                            for r, _, _ in requests),
+               "decode_profile": _profile_decode(eng, requests),
+               "tokens": {r: toks1[r][:8] for r, _, _ in requests}}
+        emit(res)
+        _check_streams(f"engine_kv {kind}", requests,
+                       ((toks1, reasons1), (toks2, reasons2)), cfg, max_new)
+        require(all(shared_reasons.get(r) in ("length", "stop")
+                    for r, _, _ in shared),
+                f"engine_kv {kind}: a shared-prefix request did not finish")
+        for base in ("decode_attention", "prefill_attention"):
+            require(counts[f"{base}_{kind}"] > 0,
+                    f"engine_kv {kind}: {base}_{kind} never launched")
+        require(kv == want, f"engine_kv {kind}: cache bytes {kv} != {want}")
+        del eng
+        torch.cuda.empty_cache()
+    return total, shared_toks
+
+
+def phase_engine_paged_kv(params, cfg, slab_shared, max_new=32):
+    """The shared-prefix requests through the paged engine (kv_page_size
+    128, sharing on) with fp8_e5m2, int8 and int4 pages: streams equal the
+    slab engine's at the same kind, the radix hits, copy-on-write copies
+    pages and their scales, and B5's body for the kind launches."""
+    from bigdl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from bigdl_tpu_torch.ops.paged import paged_cache_nbytes
+    from bigdl_tpu_torch.serving.engine import EngineConfig, LLMEngine
+    from bigdl_tpu_torch.utils.testing import SyntheticCausalLM
+
+    requests = _shared_prefix_requests(cfg, max_new)
+    model = SyntheticCausalLM(params, cfg)
+    total = {}
+    for kind in QUANT_KV_KINDS:
+        eng = LLMEngine(model, EngineConfig(
+            max_batch=8, max_seq=2048, kv_page_size=128,
+            prefix_sharing="on", kv_cache_dtype=kind), device="cuda")
+        reset_launch_counts()
+        toks, reasons, ttft, perf = _run_requests(eng, requests)
+        counts = launch_counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        snap = eng._paged_snapshot()
+        page_bytes = paged_cache_nbytes(cfg.num_hidden_layers, 1, 128,
+                                        cfg.num_key_value_heads, cfg.hd,
+                                        kind)["total"]
+        same = {r: toks[r] == slab_shared[kind][r] for r, _, _ in requests}
+        emit({"phase": "engine_paged_kv", "kv": kind, "prefix_sharing": "on",
+              "requests": len(requests),
+              "prompt_lens": [len(p) for _, p, _ in requests],
+              "launches": counts, "finish_reasons": reasons, "ttft_s": ttft,
+              **perf, "paged": snap, "kv_bytes_per_page_formula": page_bytes,
+              "equal_to_slab": same,
+              "tokens": {r: toks[r][:8] for r, _, _ in requests}})
+        name = f"engine_paged_kv {kind}"
+        require(all(reasons.get(r) in ("length", "stop")
+                    for r, _, _ in requests),
+                f"{name}: not every request finished: {reasons}")
+        require(all(same.values()), f"{name}: streams differ from the slab "
+                f"engine's at {kind}: {same}")
+        require(counts[f"paged_decode_attention_{kind}"] > 0,
+                f"{name}: B5's {kind} body never launched")
+        require(snap["radix"]["hits"] == len(requests) - 1,
+                f"{name}: radix hits {snap['radix']}")
+        require(snap["cow_pages_total"] > 0, f"{name}: no copy-on-write")
+        require(snap["pool_exhausted_total"] == 0, f"{name}: pool ran dry")
+        require(snap["kv_bytes_per_page"] == page_bytes,
+                f"{name}: {snap['kv_bytes_per_page']} bytes a page, formula "
+                f"{page_bytes}")
+        del eng
+        torch.cuda.empty_cache()
+    return total
 
 
 def phase_model_moe():
@@ -1201,6 +1469,9 @@ def summary(records, counts):
         "paged_decode_attention": dict(B=8, Hkv=32, hd=128),
         "ragged_expert_matmul": dict(routing="prefill", linear="gate_up"),
     }
+    for base in _KV_BODIES:
+        for kind in QUANT_KV_KINDS:
+            rep[f"{base}_{kind}"] = rep[base]
     out = []
     for name, meta in KERNELS.items():
         mine = [r for r in records if r["kernel"] == name]
@@ -1216,7 +1487,7 @@ def summary(records, counts):
                     **{k: main[k] for k in ("matmul_only_ms", "b3_ms")
                        if k in main},
                     "case": {k: main[k] for k in main if k in (
-                        "M", "K", "N", "B", "H", "Hkv", "hd", "S", "Sq",
+                        "kv", "M", "K", "N", "B", "H", "Hkv", "hd", "S", "Sq",
                         "ps", "NP", "pos", "E", "Np", "tokens", "routing",
                         "linear")}})
     emit({"kernels": out})
@@ -1247,6 +1518,10 @@ def main() -> int:
         # main-path launches: each path's run, counted from 0
         more = [phase_engine_paged(params, cfg, slab_toks, slab_shared),
                 phase_prefix_burst(params, cfg)]
+        for kind in ("int8", "int4"):
+            phase_reference(params, cfg, kind)
+        kv_counts, kv_shared = phase_engine_kv(params, cfg, slab_toks)
+        more += [kv_counts, phase_engine_paged_kv(params, cfg, kv_shared)]
         del params
         gc.collect()
         torch.cuda.empty_cache()

@@ -178,9 +178,28 @@ def test_update_layer_bytes_match_jax_including_clamp(pos):
 
 
 def test_init_cache_shapes_and_bf16_only():
-    c = tkv.init_cache(2, 3, 128, 2, 64, per_slot_pos=True, device="cpu")
-    assert c.k.shape == (2, 3, 128, 2, 64) and c.pos.shape == (3,)
-    assert c.k.dtype == torch.bfloat16 and c.max_seq == 128
+    """Every storage kind's planes (int4 packed two codes a byte, f32
+    scales for int8/int4), bf16 by default; the compute dtype is bf16
+    only, and an unknown kind name raises."""
+    want = {"bf16": (torch.bfloat16, 64, False),
+            "fp8_e5m2": (torch.float8_e5m2, 64, False),
+            "int8": (torch.int8, 64, True),
+            "int4": (torch.uint8, 32, True)}
+    for kind, (dtype, width, scaled) in want.items():
+        c = tkv.init_cache(2, 3, 128, 2, 64, per_slot_pos=True,
+                           device="cpu", kv_cache_dtype=kind)
+        assert c.k.shape == c.v.shape == (2, 3, 128, 2, width)
+        assert c.k.dtype == c.v.dtype == dtype and c.kv_dtype == kind
+        assert c.pos.shape == (3,) and c.max_seq == 128
+        if scaled:
+            assert c.k_scale.shape == c.v_scale.shape == (2, 3, 128, 2)
+            assert c.k_scale.dtype == torch.float32
+        else:
+            assert c.k_scale is None and c.v_scale is None
+    assert tkv.init_cache(1, 1, 8, 1, 8, device="cpu").k.dtype == \
+        torch.bfloat16
+    with pytest.raises(ValueError, match="unknown kv_cache_dtype"):
+        tkv.init_cache(1, 1, 8, 1, 8, device="cpu", kv_cache_dtype="int2")
     with pytest.raises(NotImplementedError):
         tkv.init_cache(1, 1, 8, 1, 8, dtype=torch.float8_e5m2, device="cpu")
 
