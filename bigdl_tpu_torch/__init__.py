@@ -5,3 +5,5 @@ are hand-written CUDA C++ under ``csrc/``, built with nvcc at first use
 (``_native.py``); on CPU tensors every kernel wrapper runs its plain
 PyTorch version instead.
 """
+
+__version__ = "0.1.0"

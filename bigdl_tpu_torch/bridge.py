@@ -4,7 +4,12 @@ Input is a parameter tree whose leaves are numpy arrays, as
 ``jax.tree.map(numpy.asarray, params)`` gives it. A quantized leaf is any
 object with ``data``, ``scale``, ``zero``, ``qtype`` and ``shape``
 attributes (the JAX package's QTensor after that map); its planes are
-copied byte for byte, stacked ``[L, ...]`` layer planes included. bf16
+copied byte for byte, stacked ``[L, ...]`` layer planes included. A
+prepacked sym_int4 leaf, whose data is ``ml_dtypes.int4`` ``[..., Kp, N]``
+(the JAX package's int4-dtype layout), becomes the port's int4 layout:
+the same signed codes packed two a byte (``ops/quant.pack_int4_rows``);
+``qtensor_to_numpy`` carries a port QTensor back, int4-layout codes as
+int8 or as a dtype the caller names. bf16
 leaves may arrive as a ``bfloat16`` numpy dtype or as their uint16 bit
 view; both become ``torch.bfloat16`` with the same bits. No module of the
 JAX package is imported here: the tree is duck-typed.
@@ -25,7 +30,10 @@ import torch
 
 from bigdl_tpu_torch.ops.kvcache import KVCache, pack_int4, unpack_int4
 from bigdl_tpu_torch.ops.paged import PagedKVCache
-from bigdl_tpu_torch.ops.quant import QTensor, get_qtype
+import types
+
+from bigdl_tpu_torch.ops.quant import (LAYOUT_INT4, QTensor, get_qtype,
+                                       pack_int4_rows, unpack_int4_rows)
 
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
@@ -49,17 +57,47 @@ def _is_qtensor(leaf) -> bool:
 
 def qtensor_from_numpy(leaf, device="cuda") -> QTensor:
     qt = get_qtype(leaf.qtype)
-    data = tensor_from_numpy(leaf.data, device)
-    want = torch.int8 if qt.storage_bits == 8 else torch.uint8
-    if data.dtype != want:
-        raise TypeError(f"{leaf.qtype} data plane is {data.dtype}, expected "
-                        f"{want} (the TPU-only int4 layout is not carried)")
     if getattr(leaf, "aux", None) is not None:
         raise TypeError(f"{leaf.qtype}: aux planes are not ported")
+    layout = "canonical"
+    raw = np.asarray(leaf.data)
+    if raw.dtype.name == "int4":
+        if qt.name != "sym_int4":
+            raise TypeError(f"int4-dtype data for {leaf.qtype}: only "
+                            "sym_int4 has the int4 layout")
+        codes = torch.from_numpy(np.ascontiguousarray(raw.astype(np.int8)))
+        data, layout = pack_int4_rows(codes).to(device), LAYOUT_INT4
+    else:
+        data = tensor_from_numpy(raw, device)
+        want = torch.int8 if qt.storage_bits == 8 else torch.uint8
+        if data.dtype != want:
+            raise TypeError(f"{leaf.qtype} data plane is {data.dtype}, "
+                            f"expected {want}")
     return QTensor(data, tensor_from_numpy(leaf.scale, device),
                    None if leaf.zero is None
                    else tensor_from_numpy(leaf.zero, device),
-                   qt.name, tuple(int(s) for s in leaf.shape))
+                   qt.name, tuple(int(s) for s in leaf.shape), layout)
+
+
+def qtensor_to_numpy(qt: QTensor, int4_dtype=None):
+    """A port QTensor as numpy planes (a namespace with ``data``,
+    ``scale``, ``zero``, ``qtype``, ``shape``): bf16 as its uint16 bits;
+    int4-layout data as the signed codes ``[..., Kp, N]``, int8 or
+    ``int4_dtype`` (e.g. ``ml_dtypes.int4``, the JAX package's layout)."""
+    def bits(t):
+        return None if t is None else (
+            t.detach().cpu().contiguous().view(torch.int16).numpy()
+            .view(np.uint16))
+
+    if qt.is_int4:
+        data = unpack_int4_rows(qt.data.detach().cpu()).numpy()
+        if int4_dtype is not None:
+            data = data.astype(int4_dtype)
+    else:
+        data = qt.data.detach().cpu().numpy()
+    return types.SimpleNamespace(data=data, scale=bits(qt.scale),
+                                 zero=bits(qt.zero), qtype=qt.qtype,
+                                 shape=tuple(qt.shape))
 
 
 def params_from_numpy(tree: Any, device="cuda") -> Any:

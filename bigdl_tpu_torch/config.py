@@ -26,6 +26,25 @@ Only the knobs the serving path reads:
   the CPU; ``ragged`` forces the ragged dispatch (on the CPU through B6's
   plain version); ``dense`` forces the dense combine (``moe_dispatch`` in
   the JAX package).
+- ``BIGDL_TPU_TORCH_MATMUL_GEMV`` (default ``auto``): the body of the
+  decode GEMV (B1, M <= 32), ``matmul_gemv`` of the JAX package.
+  ``auto`` takes the ``mxu`` body on int4-layout weights and the standard
+  body on the canonical packing; ``fold`` takes the scale-folded body on
+  the canonical packing (non-asym) and ``mxu`` on the int4 layout;
+  ``mxuflat`` the int4-layout body with a per-weight scale; ``mxu8``
+  8-bit activations against int4-layout or sym_int8 weights (sym kinds);
+  ``off`` sends M <= 32 to the dequant GEMM (B2). A value that names a
+  body the weight cannot take picks the body the JAX package would pick.
+  "mxu" names the int4 layout and the body that reads it, after the TPU's
+  matrix unit; the H100 has no such unit, and the port's bodies run on its
+  tensor cores.
+- ``BIGDL_TPU_TORCH_PREPACK`` and ``BIGDL_TPU_TORCH_MXU_LAYOUT`` (default
+  ``auto``; ``on``, ``off`` and the 1/true/0/false aliases): whether a
+  loaded model's sym_int4 weights are relaid into the int4 layout
+  (``ops/quant.prepack_tree``). ``auto`` prepacks when the parameters
+  live on a CUDA device; either flag set to ``off`` disables the prepack,
+  and either set to ``on`` forces it, on the CPU too (``prepack`` and
+  ``mxu_layout`` of the JAX package).
 """
 
 from __future__ import annotations
@@ -40,6 +59,7 @@ MATMUL_MAX_M_CEILING = 128
 
 _TRISTATE = ("auto", "on", "off")
 MOE_DISPATCH_MODES = ("auto", "ragged", "dense")
+MATMUL_GEMV_MODES = ("auto", "fold", "mxu", "mxuflat", "mxu8", "off")
 
 
 def resolve_kv_page_size(spec) -> int:
@@ -68,14 +88,33 @@ def resolve_kv_pages(spec) -> int:
     return n
 
 
-def resolve_prefix_sharing(spec) -> str:
+def _tristate(spec, what: str) -> str:
     """"auto" | "on" | "off" (also 1/true/0/false)."""
     s = str(spec).strip().lower() if spec is not None else "auto"
     s = {"1": "on", "true": "on", "0": "off", "false": "off",
          "": "auto"}.get(s, s)
     if s not in _TRISTATE:
-        raise ValueError(f"unknown prefix_sharing mode {spec!r}; choose "
-                         f"from {_TRISTATE}")
+        raise ValueError(f"unknown {what} mode {spec!r}; choose from "
+                         f"{_TRISTATE}")
+    return s
+
+
+def resolve_prefix_sharing(spec) -> str:
+    """"auto" | "on" | "off" (also 1/true/0/false)."""
+    return _tristate(spec, "prefix_sharing")
+
+
+def resolve_prepack(spec) -> str:
+    """"auto" | "on" | "off" (also 1/true/0/false): the load-time prepack
+    of ``BIGDL_TPU_TORCH_PREPACK`` / ``_MXU_LAYOUT``."""
+    return _tristate(spec, "prepack")
+
+
+def resolve_matmul_gemv(spec) -> str:
+    s = str(spec).strip().lower() if spec is not None else "auto"
+    if s not in MATMUL_GEMV_MODES:
+        raise ValueError(f"BIGDL_TPU_TORCH_MATMUL_GEMV must be one of "
+                         f"{MATMUL_GEMV_MODES}, got {spec!r}")
     return s
 
 
@@ -88,6 +127,9 @@ class Flags:
     prefix_sharing: str = "auto"
     moe_dispatch: str = "auto"
     kv_cache_dtype: str = "bf16"
+    matmul_gemv: str = "auto"
+    prepack: str = "auto"
+    mxu_layout: str = "auto"
 
 
 def flags() -> Flags:
@@ -114,4 +156,9 @@ def flags() -> Flags:
             env("BIGDL_TPU_TORCH_PREFIX_SHARING", "auto")),
         moe_dispatch=moe,
         kv_cache_dtype=resolve_kv_cache_dtype(
-            env("BIGDL_TPU_TORCH_KV_CACHE_DTYPE", "bf16")))
+            env("BIGDL_TPU_TORCH_KV_CACHE_DTYPE", "bf16")),
+        matmul_gemv=resolve_matmul_gemv(
+            env("BIGDL_TPU_TORCH_MATMUL_GEMV", "auto")),
+        prepack=resolve_prepack(env("BIGDL_TPU_TORCH_PREPACK", "auto")),
+        mxu_layout=_tristate(env("BIGDL_TPU_TORCH_MXU_LAYOUT", "auto"),
+                             "mxu_layout"))

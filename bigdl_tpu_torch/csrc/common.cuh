@@ -68,6 +68,15 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c += a . b on the tensor cores: m16n8k32, s8 in, s32 accumulate (exact)
+__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
+                                       uint32_t b0, uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // cp.async of 16 bytes into shared memory; src_bytes 0 writes zeros
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {

@@ -28,6 +28,24 @@
 // that a second pass adds in split order, so results do not vary from
 // run to run. With one split the kernel writes bf16 y directly.
 //
+// Two weight layouts share the body: the split-block nibbles above, and
+// the int4 layout of a prepacked sym_int4 weight (KIND_I4: packed row i
+// holds the signed codes of K rows 2i, 2i+1). There lane t's k slots
+// (2t, 2t+1) are one byte, so the lane loads packed rows t, t+4, t+8 and
+// t+12 of a 16-row unit (one 32-K quant block, two k steps) and
+// sign-extends each byte's nibbles into a bf16 pair.
+//
+// Two scale policies share it too. STD multiplies every weight by its
+// block scale and rounds it to bf16 before the product (the `_gemv_kernel`
+// / `_kernel_4bit` / `_kernel_i4` / `_gemv_kernel_mxuflat` numerics). FOLD
+// feeds the tensor cores the raw codes (exact in bf16; a codebook value
+// rounded to bf16) and sums each 32- or 64-K quant block into a separate
+// f32 C fragment, which then FMAs into the running sum with its column's
+// f32 scale (`_gemv_kernel_fold` / `_gemv_kernel_mxu`): one scale a block
+// and C column, no per-weight multiply. A C fragment's columns are not the
+// ones whose codes the lane loads, so FOLD loads the scales of its 8 * CW
+// C columns instead.
+//
 // B6 runs the same body with a ragged weight address (`RAGGED`): block z
 // takes 128-row tile z of x, whose weight is expert tile_expert[z] of an
 // [E, ...] stack, and whose real rows are a prefix of tile_rows[z] rows
@@ -45,6 +63,7 @@ enum WeightKind : int {
     KIND_CODEBOOK4 = 2,  // lut[c] * s
     KIND_SYM8 = 3,       // c * s, int8 codes
     KIND_BF16 = 4,       // dense bf16 weights (B6's dense body only)
+    KIND_I4 = 5,         // s * c, signed int4 codes in K-row pairs
 };
 
 // kinds whose packed rows are K rows (16 a unit), not nibble pairs
@@ -119,42 +138,75 @@ __device__ __forceinline__ void ldg_words(const void* p, uint32_t* out) {
 // adjacent columns. A unit is 16 packed rows: two k steps for 4-bit codes
 // (low, then high nibbles), one for int8 and bf16. A bf16 row of 4 * CW
 // columns is 2 * CW words.
-template <int KIND, int CW>
+//
+// Q8 is the mxu8 body's m16n8k32 fragment: 32 K a unit (one quant
+// block), lane t's k slots 4t..4t+3 and 16+4t..16+4t+3. int4-layout
+// rows are then 2t, 2t+1, 2t+8, 2t+9 of the unit, as for the split-block
+// nibbles; int8 rows 4t..4t+3 of a 16-row half unit.
+//
+// FOLD and Q8 keep the scales of the thread's 8 * CW C columns for each
+// of the chunk's (at most two) quant blocks instead of its own columns'.
+template <int KIND, int CW, bool FOLD = false, bool Q8 = false>
 struct Words {
     static constexpr int kUnits = row_units(KIND) ? 4 : 2;
     static constexpr int kRowWords = KIND == KIND_BF16 ? 2 * CW : CW;
-    uint32_t w[kUnits][4][kRowWords];       // rows 2t, 2t+1, 2t+8, 2t+9
-    uint32_t s[kUnits][2 * CW];             // bf16 scales, 2 columns a word
+    static constexpr bool kCScales = FOLD || Q8;
+    uint32_t w[kUnits][4][kRowWords];       // (see unit_row)
+    // bf16 scales, 2 columns a word: per unit (own columns) or per block
+    // (C columns)
+    uint32_t s[kCScales ? 2 : kUnits][kCScales ? 4 * CW : 2 * CW];
     uint32_t z[kUnits][2 * CW];             // bf16 zeros (asym)
 };
 
+// Packed row i (of 4) that lane t loads in a 16-row unit.
+template <int KIND, bool Q8>
+__device__ __forceinline__ int unit_row(int t, int i) {
+    if (Q8 && KIND == KIND_SYM8) return 4 * t + i;
+    if (!Q8 && KIND == KIND_I4) return t + 4 * i;
+    return 2 * t + (i & 1) + 8 * (i >> 1);
+}
+
+// The quant block of the kinds FOLD takes: 64 for the codebook formats
+// (nf4, fp4, nf3), 32 for sym_int4, sym_int8 and the int4 layout.
+template <int KIND>
+__host__ __device__ constexpr int fold_block() {
+    return KIND == KIND_CODEBOOK4 ? 64 : 32;
+}
+
+// K rows of a unit: 16 packed rows of nibbles are 32 K, of int8/bf16 16.
+template <int KIND>
+__host__ __device__ constexpr int unit_k() {
+    return row_units(KIND) ? 16 : 32;
+}
+
 // Load this thread's packed words and scales for the chunk at K offset k0
-// (klen valid K rows).
-template <int KIND, int CW>
-__device__ __forceinline__ void load_chunk(Words<KIND, CW>& f,
-                                           const uint8_t* __restrict__ data,
-                                           const uint16_t* __restrict__ scale,
-                                           const uint16_t* __restrict__ zero,
-                                           int k0, int klen, int N, int ncol,
-                                           bool col_ok, int block, int t) {
+// (klen valid K rows). ccol is the first of the thread's C columns (FOLD,
+// Q8).
+template <int KIND, int CW, bool FOLD = false, bool Q8 = false>
+__device__ __forceinline__ void load_chunk(
+    Words<KIND, CW, FOLD, Q8>& f, const uint8_t* __restrict__ data,
+    const uint16_t* __restrict__ scale, const uint16_t* __restrict__ zero,
+    int k0, int klen, int N, int ncol, bool col_ok, int ccol, int block,
+    int t) {
+    using W = Words<KIND, CW, FOLD, Q8>;
     constexpr bool kInt8 = row_units(KIND);
-    constexpr int kRowWords = Words<KIND, CW>::kRowWords;
+    constexpr int kRowWords = W::kRowWords;
     const int half = block >> 1;
 #pragma unroll
-    for (int u = 0; u < Words<KIND, CW>::kUnits; ++u) {
+    for (int u = 0; u < W::kUnits; ++u) {
         // first packed row of the unit and its quant block
         const int p = kInt8 ? k0 + 16 * u : (k0 >> 1) + 16 * u;
-        const int gb = kInt8 ? p / block : p / half;
-        if (col_ok && (kInt8 ? 16 * u : 32 * u) < klen) {
+        [[maybe_unused]] const int gb = kInt8 ? p / block : p / half;
+        if (col_ok && unit_k<KIND>() * u < klen) {
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
-                const int row = p + 2 * t + (i & 1) + 8 * (i >> 1);
+                const int row = p + unit_row<KIND, Q8>(t, i);
                 // bf16 rows are 2 bytes a column
                 ldg_words<kRowWords>(
                     data + ((size_t)row * N + ncol) * (kRowWords / CW),
                     f.w[u][i]);
             }
-            if (KIND != KIND_BF16) {
+            if constexpr (!W::kCScales && KIND != KIND_BF16) {
                 ldg_words<2 * CW>(scale + (size_t)gb * N + ncol, f.s[u]);
             }
             if (KIND == KIND_ASYM4) {
@@ -166,10 +218,32 @@ __device__ __forceinline__ void load_chunk(Words<KIND, CW>& f,
 #pragma unroll
                 for (int c = 0; c < kRowWords; ++c) f.w[u][i][c] = 0u;
             }
+            if constexpr (!W::kCScales) {
 #pragma unroll
-            for (int c = 0; c < 2 * CW; ++c) {
-                f.s[u][c] = 0u;
-                f.z[u][c] = 0u;
+                for (int c = 0; c < 2 * CW; ++c) f.s[u][c] = 0u;
+            }
+#pragma unroll
+            for (int c = 0; c < 2 * CW; ++c) f.z[u][c] = 0u;
+        }
+    }
+    if constexpr (W::kCScales) {
+        // the chunk's quant blocks (64 / block of them) x the two groups
+        // of 4 * CW C columns
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+                const int col = ccol + 4 * CW * q;
+                if (b * block < klen && col < N) {
+                    ldg_words<2 * CW>(
+                        scale + (size_t)(k0 / block + b) * N + col,
+                        f.s[b] + 2 * CW * q);
+                } else {
+#pragma unroll
+                    for (int c = 0; c < 2 * CW; ++c) {
+                        f.s[b][2 * CW * q + c] = 0u;
+                    }
+                }
             }
         }
     }
@@ -202,9 +276,11 @@ __device__ __forceinline__ float bf16_hi(uint32_t w) {
 
 // B fragments of one k step for the 4 * CW n-tiles: bf[4c + j] = {k slots
 // 2t and 2t+1, k slots 2t+8 and 2t+9} of byte j of word c (this thread's
-// column 4c + j). For 4-bit codes `hi` picks the high nibbles.
-template <int KIND, int CW>
-__device__ __forceinline__ void dequant_step(const Words<KIND, CW>& f,
+// column 4c + j). For split-block codes `hi` picks the high nibbles, for
+// the int4 layout the unit's second k step (rows t+8, t+12). FOLD leaves
+// the scale out.
+template <int KIND, int CW, bool FOLD = false>
+__device__ __forceinline__ void dequant_step(const Words<KIND, CW, FOLD>& f,
                                              int u, bool hi,
                                              const float* lut,
                                              uint32_t (*bf)[2]) {
@@ -212,8 +288,29 @@ __device__ __forceinline__ void dequant_step(const Words<KIND, CW>& f,
     for (int c = 0; c < CW; ++c) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-            const uint32_t sw = f.s[u][2 * c + (j >> 1)];
-            if (KIND == KIND_BF16) {
+            uint32_t sw = 0u;                 // FOLD reads no scale here
+            if constexpr (!FOLD) sw = f.s[u][2 * c + (j >> 1)];
+            if (KIND == KIND_I4) {
+                // byte j of the row in both halves; its nibbles at bits 0-3
+                // and 16-19, xor 8 makes them the unsigned code c = s + 8
+                const uint32_t s2 = __byte_perm(sw, 0u,
+                                                (j & 1) ? 0x3232 : 0x1010);
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    const uint32_t p = __byte_perm(
+                        f.w[u][2 * (hi ? 1 : 0) + r][c], 0u,
+                        0x4040u | j | (j << 8));
+                    const uint32_t q =
+                        ((p & 0x0000000fu) | ((p >> 4) & 0x000f0000u)) ^
+                        0x00080008u;
+                    // (0x4300 | c) is the bf16 128 + c; fma(v, 1, -136) is
+                    // the signed code exactly
+                    const uint32_t d = fma_bf16x2(q | 0x43004300u,
+                                                  0x3F803F80u, 0xC308C308u);
+                    bf[4 * c + j][r] =
+                        FOLD ? d : fma_bf16x2(d, s2, 0x80008000u);
+                }
+            } else if (KIND == KIND_BF16) {
                 // column 4c + j is half (j & 1) of word 2c + (j >> 1) of a
                 // row: pair rows 2t and 2t+1 (and 2t+8, 2t+9) as they are
 #pragma unroll
@@ -238,10 +335,13 @@ __device__ __forceinline__ void dequant_step(const Words<KIND, CW>& f,
                     const uint32_t v = (p & 0x000f000fu) | 0x43004300u;
                     const uint32_t d =
                         fma_bf16x2(v, 0x3F803F80u, 0xC308C308u);
-                    bf[4 * c + j][r] = fma_bf16x2(d, s2, 0x80008000u);
+                    bf[4 * c + j][r] =
+                        FOLD ? d : fma_bf16x2(d, s2, 0x80008000u);
                 }
             } else {
-                const float sf = (j & 1) ? bf16_hi(sw) : bf16_lo(sw);
+                // FOLD: the code (or table value) itself, rounded to bf16
+                const float sf = FOLD ? 1.f
+                                      : (j & 1) ? bf16_hi(sw) : bf16_lo(sw);
                 float zf = 0.f;
                 if (KIND == KIND_ASYM4) {
                     const uint32_t zw = f.z[u][2 * c + (j >> 1)];
@@ -282,11 +382,59 @@ __device__ __forceinline__ void mma_step(float (*acc)[NT][4],
     }
 }
 
+// Write a warp's MT x 32 * CW output tile: bf16 y with one K split, else
+// the split's f32 partial sums into ws. C fragment e of tile j holds row g
+// (+8 for e >= 2) and warp column (2t + (e & 1)) * 4 * CW + j: per row,
+// 8 * CW consecutive columns.
+template <int MT, int CW>
+__device__ __forceinline__ void store_tile(float (*acc)[4 * CW][4],
+                                           float* __restrict__ ws,
+                                           uint16_t* __restrict__ y, int M,
+                                           int N, int row0, int m_out,
+                                           int wcol, int g, int t) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int hrow = 0; hrow < 2; ++hrow) {
+            const int row = mt * 16 + g + 8 * hrow;
+            if (row >= m_out) continue;
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+                const int n = wcol + (2 * t + q) * 4 * CW;
+                if (n >= N) continue;
+                const int e = 2 * hrow + q;
+#pragma unroll
+                for (int c = 0; c < CW; ++c) {
+                    if (gridDim.y == 1) {
+                        uint2 o;
+                        o.x = pack_bf16x2(acc[mt][4 * c][e],
+                                          acc[mt][4 * c + 1][e]);
+                        o.y = pack_bf16x2(acc[mt][4 * c + 2][e],
+                                          acc[mt][4 * c + 3][e]);
+                        *reinterpret_cast<uint2*>(
+                            y + ((size_t)row0 + row) * N + n + 4 * c) = o;
+                    } else {
+                        *reinterpret_cast<float4*>(
+                            ws + ((size_t)blockIdx.y * M + row0 + row) * N +
+                            n + 4 * c) =
+                            make_float4(acc[mt][4 * c][e],
+                                        acc[mt][4 * c + 1][e],
+                                        acc[mt][4 * c + 2][e],
+                                        acc[mt][4 * c + 3][e]);
+                    }
+                }
+            }
+        }
+    }
+}
+
 // The kernel body. MT m-tiles of 16 rows; CW words (4 * CW columns) per
 // thread per packed row; STAGES chunks of 64 K in the pipeline. With
 // RAGGED, M is the height of the whole row buffer and block z computes its
-// tile z (rows [128 z, 128 z + 128), MT == 8) against its expert.
-template <int MT, int CW, int STAGES, int KIND, bool RAGGED>
+// tile z (rows [128 z, 128 z + 128), MT == 8) against its expert. FOLD
+// is the scale-folded policy (not with RAGGED).
+template <int MT, int CW, int STAGES, int KIND, bool RAGGED,
+          bool FOLD = false>
 __device__ __forceinline__ void
 dequant_mma_body(const uint16_t* __restrict__ x,       // [M, Kp] bf16
                  const uint8_t* __restrict__ data,     // [Kp/2, N] | [Kp, N]
@@ -330,13 +478,23 @@ dequant_mma_body(const uint16_t* __restrict__ x,       // [M, Kp] bf16
     const int half = block >> 1;
     if (KIND == KIND_CODEBOOK4 && tid < 16) lut[tid] = lut_g[tid];
 
+    static_assert(!(FOLD && (RAGGED || KIND == KIND_ASYM4 ||
+                             KIND == KIND_BF16)),
+                  "FOLD takes sym, codebook and int4-layout weights");
+    // FOLD: the first of this thread's 8 * CW C columns
+    const int ccol = wcol + 8 * CW * t;
     float acc[MT][NT][4];
+    // FOLD: the current quant block's partial sums
+    float part[FOLD ? MT : 1][NT][4];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
 #pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+            for (int e = 0; e < 4; ++e) {
+                acc[mt][j][e] = 0.f;
+                if (FOLD) part[mt][j][e] = 0.f;
+            }
         }
     }
 
@@ -351,15 +509,16 @@ dequant_mma_body(const uint16_t* __restrict__ x,       // [M, Kp] bf16
     // xs[(c - c_begin) % STAGES]. The loop is unrolled by STAGES so every
     // slot index is a constant: registers still waiting for their loads
     // are never copied (a copy would stall until the load lands).
-    Words<KIND, CW> ring[STAGES];
+    Words<KIND, CW, FOLD> ring[STAGES];
 #pragma unroll
     for (int i = 0; i < STAGES - 1; ++i) {
         const int c = c_begin + i;
         if (c < c_end) {
             stage_x<MT>(xs[i], x, m_live, Kp, c * kChunk, tid);
-            load_chunk<KIND, CW>(ring[i], data, scale, zero, c * kChunk,
-                                 min(kChunk, Kp - c * kChunk), N, ncol,
-                                 col_ok, block, t);
+            load_chunk<KIND, CW, FOLD>(ring[i], data, scale, zero,
+                                       c * kChunk,
+                                       min(kChunk, Kp - c * kChunk), N, ncol,
+                                       col_ok, ccol, block, t);
         }
         cp_async_commit();
     }
@@ -374,35 +533,70 @@ dequant_mma_body(const uint16_t* __restrict__ x,       // [M, Kp] bf16
             const int sn = (i + STAGES - 1) % STAGES;
             if (cn < c_end) {
                 stage_x<MT>(xs[sn], x, m_live, Kp, cn * kChunk, tid);
-                load_chunk<KIND, CW>(ring[sn], data, scale, zero,
-                                     cn * kChunk,
-                                     min(kChunk, Kp - cn * kChunk), N, ncol,
-                                     col_ok, block, t);
+                load_chunk<KIND, CW, FOLD>(ring[sn], data, scale, zero,
+                                           cn * kChunk,
+                                           min(kChunk, Kp - cn * kChunk), N,
+                                           ncol, col_ok, ccol, block, t);
             }
             cp_async_commit();
             cp_async_wait<STAGES - 1>();   // chunk c's x has landed
             __syncthreads();
 
             const int klen = min(kChunk, Kp - c * kChunk);
+            // STD sums into acc, FOLD into the block's part
+            auto step = [&](int kc, uint32_t (*bf)[2]) {
+                if constexpr (FOLD) {
+                    mma_step<MT, NT, RAGGED>(part, xs[i], kc, bf, lane,
+                                             mt_live);
+                } else {
+                    mma_step<MT, NT, RAGGED>(acc, xs[i], kc, bf, lane,
+                                             mt_live);
+                }
+            };
 #pragma unroll
-            for (int u = 0; u < Words<KIND, CW>::kUnits; ++u) {
+            for (int u = 0; u < Words<KIND, CW, FOLD>::kUnits; ++u) {
+                constexpr int uk = unit_k<KIND>();
+                if (uk * u >= klen) continue;
                 uint32_t bf[NT][2];
                 if (row_units(KIND)) {
-                    if (16 * u < klen) {
-                        dequant_step<KIND, CW>(ring[i], u, false, lut, bf);
-                        mma_step<MT, NT, RAGGED>(acc, xs[i], 16 * u, bf,
-                                                 lane, mt_live);
-                    }
-                } else if (32 * u < klen) {
+                    dequant_step<KIND, CW, FOLD>(ring[i], u, false, lut, bf);
+                    step(16 * u, bf);
+                } else {
                     // the unit's 16 packed rows: k [kl, kl+16) and +half
+                    // (the int4 layout: block 32, so half is 16)
                     const int blk = (16 * u) / half;
                     const int kl = blk * block + (16 * u - blk * half);
-                    dequant_step<KIND, CW>(ring[i], u, false, lut, bf);
-                    mma_step<MT, NT, RAGGED>(acc, xs[i], kl, bf, lane,
-                                             mt_live);
-                    dequant_step<KIND, CW>(ring[i], u, true, lut, bf);
-                    mma_step<MT, NT, RAGGED>(acc, xs[i], kl + half, bf, lane,
-                                             mt_live);
+                    dequant_step<KIND, CW, FOLD>(ring[i], u, false, lut, bf);
+                    step(kl, bf);
+                    dequant_step<KIND, CW, FOLD>(ring[i], u, true, lut, bf);
+                    step(kl + half, bf);
+                }
+                if constexpr (FOLD) {
+                    // (compile-time block: the scale words stay in
+                    // registers)
+                    constexpr int fb = fold_block<KIND>();
+                    if ((uk * (u + 1)) % fb != 0) continue;
+                    // the block is complete: acc += part * scale of the C
+                    // column (2t + (e & 1)) * 4CW + j, then a fresh part
+                    const uint32_t* sw = ring[i].s[(uk * u) / fb];
+#pragma unroll
+                    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+                        for (int q = 0; q < 2; ++q) {
+                            const uint32_t w2 = sw[2 * CW * q + (j >> 1)];
+                            const float sc = (j & 1) ? bf16_hi(w2)
+                                                     : bf16_lo(w2);
+#pragma unroll
+                            for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+                                for (int e = q; e < 4; e += 2) {
+                                    acc[mt][j][e] = fmaf(part[mt][j][e], sc,
+                                                         acc[mt][j][e]);
+                                    part[mt][j][e] = 0.f;
+                                }
+                            }
+                        }
+                    }
                 }
             }
             __syncthreads();               // xs[i] free for reuse
@@ -410,46 +604,11 @@ dequant_mma_body(const uint16_t* __restrict__ x,       // [M, Kp] bf16
     }
     cp_async_wait<0>();
 
-    // C fragment e of tile j holds row g (+8 for e >= 2) and warp column
-    // (2t + (e & 1)) * 4 * CW + j: per row, 8 * CW consecutive columns
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-        for (int hrow = 0; hrow < 2; ++hrow) {
-            const int row = mt * 16 + g + 8 * hrow;
-            if (row >= m_out) continue;
-#pragma unroll
-            for (int q = 0; q < 2; ++q) {
-                const int n = wcol + (2 * t + q) * 4 * CW;
-                if (n >= N) continue;
-                const int e = 2 * hrow + q;
-#pragma unroll
-                for (int c = 0; c < CW; ++c) {
-                    if (gridDim.y == 1) {
-                        uint2 o;
-                        o.x = pack_bf16x2(acc[mt][4 * c][e],
-                                          acc[mt][4 * c + 1][e]);
-                        o.y = pack_bf16x2(acc[mt][4 * c + 2][e],
-                                          acc[mt][4 * c + 3][e]);
-                        *reinterpret_cast<uint2*>(
-                            y + ((size_t)row0 + row) * N + n + 4 * c) = o;
-                    } else {
-                        *reinterpret_cast<float4*>(
-                            ws + ((size_t)blockIdx.y * M + row0 + row) * N +
-                            n + 4 * c) =
-                            make_float4(acc[mt][4 * c][e],
-                                        acc[mt][4 * c + 1][e],
-                                        acc[mt][4 * c + 2][e],
-                                        acc[mt][4 * c + 3][e]);
-                    }
-                }
-            }
-        }
-    }
+    store_tile<MT, CW>(acc, ws, y, M, N, row0, m_out, wcol, g, t);
 }
 
 // B1 / B2: one weight, all M rows.
-template <int MT, int CW, int STAGES, int KIND>
+template <int MT, int CW, int STAGES, int KIND, bool FOLD = false>
 __global__ void __launch_bounds__(kThreads)
 dequant_mma_kernel(const uint16_t* __restrict__ x,
                    const uint8_t* __restrict__ data,
@@ -458,7 +617,7 @@ dequant_mma_kernel(const uint16_t* __restrict__ x,
                    const float* __restrict__ lut_g, float* __restrict__ ws,
                    uint16_t* __restrict__ y, int M, int Kp, int N, int block,
                    int chunks_per_split) {
-    dequant_mma_body<MT, CW, STAGES, KIND, false>(
+    dequant_mma_body<MT, CW, STAGES, KIND, false, FOLD>(
         x, data, scale, zero, lut_g, ws, y, M, Kp, N, block,
         chunks_per_split, RaggedArgs{});
 }
@@ -541,8 +700,9 @@ int launch(int kind, const void* x, const void* data, const void* scale,
             } else {
                 return (int)cudaErrorInvalidValue;
             }
-        default:
         BIGDL_DQ_KIND(KIND_SYM8)
+        default:                   // KIND_I4 runs through launch_variant
+            return (int)cudaErrorInvalidValue;
     }
 #undef BIGDL_DQ_KIND
     if (split > 1) {
@@ -551,6 +711,36 @@ int launch(int kind, const void* x, const void* data, const void* scale,
             (const float*)ws, (uint16_t*)y, split, mn);
     }
     return (int)cudaGetLastError();
+}
+
+// One launch of a single-kind variant (the int4-layout and scale-folded
+// bodies: mxu, fold, mxuflat, i4) and the split-order sum when split > 1.
+// Returns the cudaError_t of the launches.
+template <int MT, int CW, int STAGES, int KIND, bool FOLD>
+int launch_variant(const void* x, const void* data, const void* scale,
+                   const void* lut, void* ws, void* y, int M, int Kp, int N,
+                   int block, int split, int cps, cudaStream_t st) {
+    constexpr int cols = kWarps * 32 * CW;
+    dequant_mma_kernel<MT, CW, STAGES, KIND, FOLD>
+        <<<dim3((N + cols - 1) / cols, split), kThreads, 0, st>>>(
+            (const uint16_t*)x, (const uint8_t*)data, (const uint16_t*)scale,
+            nullptr, (const float*)lut, (float*)ws, (uint16_t*)y, M, Kp, N,
+            block, cps);
+    if (split > 1) {
+        const int mn = M * N;
+        finalize_kernel<<<(mn + 255) / 256, 256, 0, st>>>(
+            (const float*)ws, (uint16_t*)y, split, mn);
+    }
+    return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM of a single-kind variant (0 on error).
+template <int MT, int CW, int STAGES, int KIND, bool FOLD>
+int variant_blocks_per_sm() {
+    int n = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, dequant_mma_kernel<MT, CW, STAGES, KIND, FOLD>, kThreads, 0);
+    return e == cudaSuccess ? n : 0;
 }
 
 // Resident blocks per SM of the kernel for weight kind KIND (0 on error).
@@ -584,8 +774,10 @@ int blocks_per_sm(int kind) {
             } else {
                 return 0;
             }
-        default:
+        case KIND_SYM8:
             return occupancy<MT, CW, STAGES, KIND_SYM8, RAGGED>();
+        default:
+            return 0;
     }
 }
 
@@ -597,9 +789,225 @@ inline bool args_ok(int M, int Kp, int N, int block, int kind, int split,
     return M >= 1 && Kp >= block && N >= 4 && N % (4 * cw) == 0
            && block % 32 == 0
            && kChunk % block == 0 && Kp % block == 0 && kind >= 0
-           && kind <= KIND_BF16 && split >= 1 && cps >= 1
+           && kind <= KIND_I4 && split >= 1 && cps >= 1
            && (split - 1) * cps < nchunks && split * cps >= nchunks
            && (split == 1 || ws != nullptr);
+}
+
+// ---------------------------------------------------------------------------
+// mxu8: 8-bit activations against int4-layout or sym_int8 weights
+// (`_gemv_kernel_mxu8`). x arrives quantized per 32-K block (xq int8
+// [M, Kp], sx f32 [M, Kp / 32], the JAX package's expression, computed by
+// the wrapper). Each quant block is one m16n8k32 s8 x s8 -> s32 mma per
+// n-tile: the integer block partial is exact, and then adds into the f32
+// sum as (partial * s[r, n]) * sx[m, r]. The weight words load as in the
+// bf16 bodies (Words with Q8's row map); a lane's four k of one column
+// are widened to s8 with byte permutes: for the int4 layout two bytes'
+// nibbles, sign-extended per byte; for int8 four rows' bytes.
+
+constexpr int kLd8 = kChunk + 16;        // xs8 row stride: 80 B, no ldmatrix
+                                         // bank conflicts
+
+// Copy xq[:, k0:k0+64] into xs as it is (rows >= M and K >= Kp as zeros).
+template <int MT>
+__device__ __forceinline__ void stage_x8(uint8_t (*xs)[kLd8],
+                                         const int8_t* __restrict__ xq,
+                                         int M, int Kp, int k0, int tid) {
+    for (int i = tid; i < MT * 16 * (kChunk / 16); i += kThreads) {
+        const int m = i / (kChunk / 16);
+        const int k = k0 + 16 * (i % (kChunk / 16));
+        const bool ok = m < M && k < Kp;
+        cp_async16(&xs[m][k - k0], ok ? xq + (size_t)m * Kp + k : xq,
+                   ok ? 16 : 0);
+    }
+}
+
+// sx of this thread's C rows (g, g + 8 of each m-tile) for the chunk's
+// two blocks (0 past M or past the valid K).
+template <int MT>
+__device__ __forceinline__ void load_sx(float (&r)[2][MT][2],
+                                        const float* __restrict__ sx, int M,
+                                        int nblk, int blk0, int klen, int g) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int row = mt * 16 + g + 8 * h;
+                r[b][mt][h] = (32 * b < klen && row < M)
+                                  ? __ldg(sx + (size_t)row * nblk + blk0 + b)
+                                  : 0.f;
+            }
+        }
+    }
+}
+
+// s8 B fragments of quant block b of the chunk: bf[4c + j] = {k 4t..4t+3,
+// k 16+4t..16+4t+3} of this thread's column 4c + j.
+template <int KIND, int CW>
+__device__ __forceinline__ void widen_step(
+    const Words<KIND, CW, false, true>& f, int b, uint32_t (*bf)[2]) {
+#pragma unroll
+    for (int c = 0; c < CW; ++c) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const uint32_t sel = j | ((4 + j) << 4);
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                if (KIND == KIND_I4) {
+                    // rows 2t, 2t+1 (+8): byte j of each, four nibbles
+                    const uint32_t p = __byte_perm(f.w[b][2 * r][c],
+                                                   f.w[b][2 * r + 1][c], sel);
+                    const uint32_t v = __byte_perm(p & 0x0f0fu,
+                                                   (p >> 4) & 0x0f0fu,
+                                                   0x5140);
+                    bf[4 * c + j][r] =
+                        __vsub4(v ^ 0x08080808u, 0x08080808u);
+                } else {                 // KIND_SYM8: rows 4t..4t+3 (+16)
+                    const uint32_t lo = __byte_perm(f.w[2 * b + r][0][c],
+                                                    f.w[2 * b + r][1][c], sel);
+                    const uint32_t hi = __byte_perm(f.w[2 * b + r][2][c],
+                                                    f.w[2 * b + r][3][c], sel);
+                    bf[4 * c + j][r] = __byte_perm(lo, hi, 0x5410);
+                }
+            }
+        }
+    }
+}
+
+template <int MT, int CW, int STAGES, int KIND>
+__global__ void __launch_bounds__(kThreads)
+q8_mma_kernel(const int8_t* __restrict__ xq,     // [M, Kp] int8
+              const float* __restrict__ sx,      // [M, Kp/32] f32
+              const uint8_t* __restrict__ data,  // [Kp/2, N] | [Kp, N]
+              const uint16_t* __restrict__ scale,  // [Kp/32, N] bf16
+              float* __restrict__ ws, uint16_t* __restrict__ y, int M,
+              int Kp, int N, int chunks_per_split) {
+    static_assert(KIND == KIND_I4 || KIND == KIND_SYM8, "mxu8 weights");
+    constexpr int NT = 4 * CW;
+    constexpr int kWarpCols = 8 * NT;
+    __shared__ __align__(16) uint8_t xs[STAGES][MT * 16][kLd8];
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int wcol = (blockIdx.x * kWarps + warp) * kWarpCols;
+    const int ncol = wcol + g * 4 * CW;
+    const bool col_ok = ncol < N;
+    const int ccol = wcol + 8 * CW * t;
+    const int nblk = Kp / 32;
+
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+        }
+    }
+
+    const int nchunks = (Kp + kChunk - 1) / kChunk;
+    const int c_begin = blockIdx.y * chunks_per_split;
+    const int c_end = min(nchunks, c_begin + chunks_per_split);
+
+    Words<KIND, CW, false, true> ring[STAGES];
+    float sxr[STAGES][2][MT][2];
+#pragma unroll
+    for (int i = 0; i < STAGES - 1; ++i) {
+        const int c = c_begin + i;
+        if (c < c_end) {
+            const int klen = min(kChunk, Kp - c * kChunk);
+            stage_x8<MT>(xs[i], xq, M, Kp, c * kChunk, tid);
+            load_chunk<KIND, CW, false, true>(ring[i], data, scale, nullptr,
+                                              c * kChunk, klen, N, ncol,
+                                              col_ok, ccol, 32, t);
+            load_sx<MT>(sxr[i], sx, M, nblk, c * (kChunk / 32), klen, g);
+        }
+        cp_async_commit();
+    }
+    for (int c0 = c_begin; c0 < c_end; c0 += STAGES) {
+#pragma unroll
+        for (int i = 0; i < STAGES; ++i) {
+            const int c = c0 + i;
+            if (c >= c_end) break;
+            const int cn = c + STAGES - 1;
+            const int sn = (i + STAGES - 1) % STAGES;
+            if (cn < c_end) {
+                const int kn = min(kChunk, Kp - cn * kChunk);
+                stage_x8<MT>(xs[sn], xq, M, Kp, cn * kChunk, tid);
+                load_chunk<KIND, CW, false, true>(
+                    ring[sn], data, scale, nullptr, cn * kChunk, kn, N, ncol,
+                    col_ok, ccol, 32, t);
+                load_sx<MT>(sxr[sn], sx, M, nblk, cn * (kChunk / 32), kn, g);
+            }
+            cp_async_commit();
+            cp_async_wait<STAGES - 1>();   // chunk c's x has landed
+            __syncthreads();
+
+            const int klen = min(kChunk, Kp - c * kChunk);
+#pragma unroll
+            for (int b = 0; b < kChunk / 32; ++b) {
+                if (32 * b >= klen) continue;
+                uint32_t bf[NT][2];
+                widen_step<KIND, CW>(ring[i], b, bf);
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt) {
+                    uint32_t a[4];
+                    ldmatrix_x4(a, &xs[i][mt * 16 + (lane & 15)]
+                                         [32 * b + (lane >> 4) * 16]);
+#pragma unroll
+                    for (int j = 0; j < NT; ++j) {
+                        int part[4] = {0, 0, 0, 0};
+                        mma_s8(part, a, bf[j][0], bf[j][1]);
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) {
+                            const uint32_t w2 =
+                                ring[i].s[b][2 * CW * (e & 1) + (j >> 1)];
+                            const float sc = (j & 1) ? bf16_hi(w2)
+                                                     : bf16_lo(w2);
+                            acc[mt][j][e] += __fmul_rn(
+                                __fmul_rn((float)part[e], sc),
+                                sxr[i][b][mt][e >> 1]);
+                        }
+                    }
+                }
+            }
+            __syncthreads();               // xs[i] free for reuse
+        }
+    }
+    cp_async_wait<0>();
+    store_tile<MT, CW>(acc, ws, y, M, N, 0, M, wcol, g, t);
+}
+
+// One launch of the mxu8 body for KIND (I4 or SYM8) and the split-order
+// sum when split > 1. Returns the cudaError_t of the launches.
+template <int MT, int CW, int STAGES, int KIND>
+int launch_q8(const void* xq, const void* sx, const void* data,
+              const void* scale, void* ws, void* y, int M, int Kp, int N,
+              int split, int cps, cudaStream_t st) {
+    constexpr int cols = kWarps * 32 * CW;
+    q8_mma_kernel<MT, CW, STAGES, KIND>
+        <<<dim3((N + cols - 1) / cols, split), kThreads, 0, st>>>(
+            (const int8_t*)xq, (const float*)sx, (const uint8_t*)data,
+            (const uint16_t*)scale, (float*)ws, (uint16_t*)y, M, Kp, N, cps);
+    if (split > 1) {
+        const int mn = M * N;
+        finalize_kernel<<<(mn + 255) / 256, 256, 0, st>>>(
+            (const float*)ws, (uint16_t*)y, split, mn);
+    }
+    return (int)cudaGetLastError();
+}
+
+template <int MT, int CW, int STAGES, int KIND>
+int q8_blocks_per_sm() {
+    int n = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, q8_mma_kernel<MT, CW, STAGES, KIND>, kThreads, 0);
+    return e == cudaSuccess ? n : 0;
 }
 
 }  // namespace dqmma

@@ -420,11 +420,17 @@ def forward_paged(params: Dict[str, Any], cfg: LlamaConfig,
     return logits, cache.reset_pos(cache.pos + tokens.shape[1])
 
 
+# the registry's and the low-bit manifest's name of this family
+FAMILY = "llama"
+
 # this family threads the int8/int4 scale planes through its layers, and
 # its forward_paged threads block tables (the JAX package's per-family
 # flags, read by the engine)
 SUPPORTS_SCALED_KV = True
 SUPPORTS_PAGED_KV = True
+
+
+config_from_hf = LlamaConfig.from_hf
 
 
 def new_cache(cfg: LlamaConfig, batch: int, max_seq: int,

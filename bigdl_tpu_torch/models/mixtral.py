@@ -66,10 +66,16 @@ def forward_last_token(params, cfg: MixtralConfig, tokens, cache: KVCache,
     return forward(params, cfg, tokens, cache, compute_dtype, last_only=True)
 
 
+# the registry's and the low-bit manifest's name of this family
+FAMILY = "mixtral"
+
 # scale planes ride through llama's attention block; no forward_paged (the
 # JAX family has none)
 SUPPORTS_SCALED_KV = True
 SUPPORTS_PAGED_KV = False
+
+
+config_from_hf = MixtralConfig.from_hf
 
 
 def new_cache(cfg: MixtralConfig, batch: int, max_seq: int,

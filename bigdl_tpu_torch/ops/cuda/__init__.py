@@ -13,9 +13,13 @@ QUANT_KV_KINDS = ("fp8_e5m2", "int8", "int4")
 ATTENTION_KERNELS = ("decode_attention", "prefill_attention",
                      "paged_decode_attention")
 
+# the dequant-matmul bodies (ops/cuda/dequant_matmul.py)
+DEQUANT_KERNELS = ("dequant_gemv", "dequant_gemv_mxu", "dequant_gemv_fold",
+                   "dequant_gemv_mxuflat", "dequant_gemv_mxu8",
+                   "dequant_gemm", "dequant_gemm_i4")
+
 LAUNCHES: Dict[str, int] = {
-    "dequant_gemv": 0,
-    "dequant_gemm": 0,
+    **{name: 0 for name in DEQUANT_KERNELS},
     **{name: 0 for name in ATTENTION_KERNELS},
     "ragged_expert_matmul": 0,
     **{f"{name}_{kind}": 0 for name in ATTENTION_KERNELS

@@ -1,16 +1,36 @@
 """Dequant-matmul kernels B1 (decode GEMV, M <= 32) and B2 (tiled GEMM,
-32 < M <= 128) over block-quantized weights, with their plain version.
+32 < M <= 128) over block-quantized weights, each body beside its plain
+version.
 
 Counterpart of ``bigdl_tpu/ops/pallas/dequant_matmul.py``
-(``_q_gemv_pallas`` and ``_q_matmul_generic``). Sources:
-``csrc/dequant_gemv.cu`` and ``csrc/dequant_gemm.cu``, two tilings of the
-tensor-core dequant matmul in ``csrc/dequant_mma.cuh``.
+(``_q_gemv_pallas`` and ``_q_matmul_generic``). Each Pallas body is a
+CUDA body on the tensor-core dequant matmul of ``csrc/dequant_mma.cuh``,
+counting its launches under its own name:
 
-Both kernels compute what the plain version computes: every weight is
-dequantized in f32 (code times block scale, plus block zero for asym) and
-rounded once to bf16, x is rounded to bf16, and the product accumulates in
-f32; the output is bf16. The kernels read the packed planes directly and
-never materialize the dense weight.
+========================  ==========================  ===================
+launch counter            Pallas body                 source
+========================  ==========================  ===================
+``dequant_gemv``          B1 ``_gemv_kernel``         dequant_gemv.cu
+``dequant_gemv_mxu``      B1 ``_gemv_kernel_mxu``     dequant_variants.cu
+``dequant_gemv_fold``     B1 ``_gemv_kernel_fold``    dequant_variants.cu
+``dequant_gemv_mxuflat``  B1 ``_gemv_kernel_mxuflat`` dequant_variants.cu
+``dequant_gemv_mxu8``     B1 ``_gemv_kernel_mxu8``    dequant_mxu8.cu
+``dequant_gemm``          B2 ``_kernel_4bit/_int8``   dequant_gemm.cu
+``dequant_gemm_i4``       B2 ``_kernel_i4``           dequant_variants.cu
+========================  ==========================  ===================
+
+The std bodies (``dequant_gemv``, ``dequant_gemm``), ``mxuflat`` and
+``i4`` dequantize every weight in f32 (code times block scale, plus block
+zero for asym) and round it once to bf16, round x to bf16 and sum in f32:
+their plain version is ``plain_q_matmul``. ``mxu`` and ``fold`` feed the
+raw codes (exact in bf16; a codebook value rounded to bf16) to the product
+and scale each block's f32 partial once: ``plain_q_matmul_fused``, the
+port of ``_q_matmul_xla_fused``. ``mxu8`` quantizes x to int8 per 32-K
+block, takes exact integer block products and scales them in f32:
+``plain_q_matmul_q8``. The int4-layout bodies (mxu, mxuflat, mxu8, i4)
+take only a prepacked sym_int4 weight (``ops/quant.to_mxu_layout``), the
+others only the canonical packing. The kernels read the packed planes
+directly and never materialize the dense weight.
 """
 
 from __future__ import annotations
@@ -21,9 +41,10 @@ import torch
 
 from bigdl_tpu_torch import _native
 from bigdl_tpu_torch.config import MATMUL_MAX_M_CEILING
-from bigdl_tpu_torch.ops.codebooks import padded_lut
+from bigdl_tpu_torch.ops.codebooks import CODEBOOKS, padded_lut
 from bigdl_tpu_torch.ops.cuda import LAUNCHES
-from bigdl_tpu_torch.ops.quant import QTensor, dequantize
+from bigdl_tpu_torch.ops.quant import (QTensor, _unpack4, dequantize,
+                                       unpack_int4_rows)
 
 # decode-GEMV row ceiling (the engine's decode batch and short prefills)
 GEMV_MAX_M = 32
@@ -38,6 +59,20 @@ KERNEL_QTYPES = frozenset(
     {"sym_int4", "asym_int4", "nf4", "fp4", "nf3", "sym_int8"})
 _KIND = {"sym": 0, "asym": 1, "codebook": 2}
 _KIND_SYM8 = 3
+_KIND_I4 = 5                       # the int4 layout (KIND_I4 in csrc)
+# quantized kinds whose product folds the block scale out (as
+# ``_FUSED_XLA_QTYPES`` of the JAX package)
+FUSED_QTYPES = frozenset({"sym_int4", "asym_int4", "nf4", "sym_int8"})
+Q8_BLOCK = 32                      # the activation block of mxu8
+
+# the bodies of B1 and B2 by name -> their launch counters; counter -> the
+# body id that csrc/dequant_variants.cu's entry point takes
+_GEMV = {"std": "dequant_gemv", "mxu": "dequant_gemv_mxu",
+         "fold": "dequant_gemv_fold", "mxuflat": "dequant_gemv_mxuflat",
+         "mxu8": "dequant_gemv_mxu8"}
+_GEMM = {"std": "dequant_gemm", "i4": "dequant_gemm_i4"}
+_VARIANT_BODY = {"dequant_gemv_mxu": 0, "dequant_gemv_fold": 1,
+                 "dequant_gemv_mxuflat": 2, "dequant_gemm_i4": 3}
 
 _luts: Dict[Tuple[str, int], torch.Tensor] = {}
 _sms: Dict[int, int] = {}
@@ -54,8 +89,124 @@ def plain_q_matmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     return y.to(torch.bfloat16)
 
 
+def plain_q_matmul_fused(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """x [M, K] @ W -> [M, N] bf16 with the scales folded out of the
+    product (the port of ``_q_matmul_xla_fused``): the raw codes as bf16
+    (int4-layout and sym_int8 codes directly, split-block codes minus 8, a
+    codebook value rounded to bf16), one batched product per quant block
+    with f32 sums, times the f32 scale, summed over blocks, plus the asym
+    zero term. The plain version of the mxu and fold bodies."""
+    qt = w.qt
+    if qt.name not in FUSED_QTYPES:
+        raise NotImplementedError(
+            f"fused matmul does not support {w.qtype}")
+    b, (k, n), kp = qt.block_size, w.shape, w.kp
+    x2 = x.reshape(-1, k).to(torch.bfloat16).to(torch.float32)
+    if kp != k:
+        x2 = torch.nn.functional.pad(x2, (0, kp - k))
+    m, rows = x2.shape[0], kp // b
+    x3 = x2.reshape(m, rows, b).transpose(0, 1)              # [r, M, B]
+    if w.is_int4:
+        cb = unpack_int4_rows(w.data).to(torch.float32)
+    elif qt.storage_bits == 8:
+        cb = w.data.to(torch.float32)
+    else:
+        codes = _unpack4(w.data, b)
+        if qt.kind == "codebook":
+            lut = torch.from_numpy(CODEBOOKS[qt.codebook]).to(codes.device)
+            cb = lut.to(torch.bfloat16)[codes.long()].to(torch.float32)
+        elif qt.kind == "sym":
+            cb = codes.to(torch.float32) - 8.0
+        else:                                                # asym
+            cb = codes.to(torch.float32)
+    part = torch.bmm(x3, cb.reshape(rows, b, n))             # [r, M, N]
+    y = (part * w.scale.to(torch.float32)[:, None, :]).sum(dim=0)
+    if qt.kind == "asym":
+        xsum = x3.sum(dim=2).t()                             # [M, r]
+        y = y + torch.matmul(xsum, w.zero.to(torch.float32))
+    return y.to(torch.bfloat16)
+
+
+def quantize_x_q8(x2: torch.Tensor):
+    """x [M, Kp] (Kp a multiple of 32) -> (xq int8 [M, Kp], sx f32
+    [M, Kp / 32]): the mxu8 activation codes, the JAX package's expression
+    (``_q_gemv_pallas``, L532-537): the f32 amax of each 32-block of the
+    bf16 x, sx = amax * (1 / 127), inv = 1 / sx (0 where sx is 0), codes
+    round(x * inv), half to even."""
+    m, kp = x2.shape
+    xf = x2.to(torch.bfloat16).to(torch.float32).reshape(m, kp // Q8_BLOCK,
+                                                           Q8_BLOCK)
+    sx = xf.abs().amax(dim=-1) * (1.0 / 127.0)   # an f32 constant, as JAX's
+    inv = torch.where(sx == 0, 0.0, 1.0 / sx)
+    xq = torch.round(xf * inv[..., None]).to(torch.int8)
+    return xq.reshape(m, kp), sx
+
+
+def plain_q_matmul_q8(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """x [M, K] @ W -> [M, N] bf16 with 8-bit activations: the plain
+    version of the mxu8 body. x is quantized by ``quantize_x_q8``; each
+    block's product of int8 codes is an exact integer (|sum| < 2^24, so
+    exact in f32 too), then times s[r, n] and sx[m, r] in f32, summed over
+    blocks."""
+    _check_body("mxu8", w)
+    k, n = w.shape
+    kp = w.kp
+    x2 = x.reshape(-1, k).to(torch.bfloat16)
+    if kp != k:
+        x2 = torch.nn.functional.pad(x2, (0, kp - k))
+    m, rows = x2.shape[0], kp // Q8_BLOCK
+    xq, sx = quantize_x_q8(x2)
+    cb = (unpack_int4_rows(w.data) if w.is_int4 else w.data).to(
+        torch.float32).reshape(rows, Q8_BLOCK, n)
+    part = torch.bmm(xq.to(torch.float32).reshape(m, rows, Q8_BLOCK)
+                     .transpose(0, 1), cb)                   # [r, M, N]
+    scaled = part * w.scale.to(torch.float32)[:, None, :]
+    y = (scaled * sx.t()[:, :, None]).sum(dim=0)
+    return y.to(torch.bfloat16)
+
+
+_PLAIN = {"std": plain_q_matmul, "mxu": plain_q_matmul_fused,
+          "fold": plain_q_matmul_fused, "mxuflat": plain_q_matmul,
+          "mxu8": plain_q_matmul_q8, "i4": plain_q_matmul}
+
+
+def _check_body(body: str, w: QTensor) -> None:
+    """Raise unless `body` reads this weight's layout and qtype."""
+    qt = w.qt
+    if body in ("mxu", "mxuflat", "i4"):
+        ok = w.is_int4
+    elif body == "mxu8":
+        ok = w.is_int4 or (qt.storage_bits == 8 and qt.kind == "sym")
+    elif body == "fold":
+        ok = not w.is_int4 and qt.kind != "asym"
+    else:
+        ok = not w.is_int4
+    if not ok:
+        raise ValueError(f"body {body!r} does not take a {w.qtype} weight "
+                         f"in the {w.layout} layout")
+
+
+def pick_gemv_body(mode: str, w: QTensor) -> str:
+    """The decode-GEMV body for a ``matmul_gemv`` mode and a weight, as
+    ``q_matmul_pallas_impl`` picks it: a mode naming a body the weight
+    cannot take picks the JAX package's choice."""
+    qt = w.qt
+    if mode == "mxu8" and (w.is_int4 or qt.storage_bits == 8) \
+            and qt.kind == "sym":
+        return "mxu8"
+    if mode == "mxuflat" and w.is_int4:
+        return "mxuflat"
+    if mode in ("auto", "mxu", "fold") and w.is_int4:
+        return "mxu"
+    if mode == "fold" and qt.kind != "asym":
+        return "fold"
+    return "std"
+
+
 def _kind(w: QTensor) -> int:
     qt = w.qt
+    if w.is_int4:
+        return _KIND_I4
     if qt.storage_bits == 8:
         return _KIND_SYM8
     return _KIND[qt.kind]
@@ -121,8 +272,10 @@ def _prepare(x: torch.Tensor, w: QTensor, name: str) -> torch.Tensor:
     if _CHUNK % qt.block_size or qt.block_size % 32:
         raise ValueError(f"{name}: block size {qt.block_size} must divide "
                          f"{_CHUNK} and be a multiple of 32")
-    if w.data.data_ptr() % 4 or w.scale.data_ptr() % 8 or (
-            w.zero is not None and w.zero.data_ptr() % 8):
+    cw = _cw(name, w.n, x.shape[0])
+    if w.data.data_ptr() % min(16, 4 * cw) or \
+            w.scale.data_ptr() % min(16, 8 * cw) or (
+            w.zero is not None and w.zero.data_ptr() % min(16, 8 * cw)):
         raise ValueError(f"{name}: weight planes are not aligned for "
                          "vector loads")
     x = x.to(torch.bfloat16)
@@ -134,10 +287,29 @@ def _prepare(x: torch.Tensor, w: QTensor, name: str) -> torch.Tensor:
     return x
 
 
-def _cw(name: str, n: int) -> int:
-    """32-bit words (4 columns each) a thread loads per packed row: 16-byte
-    loads for B1 where the row allows them."""
-    return 4 if name == "dequant_gemv" and n % 16 == 0 else 1
+def _cw(name: str, n: int, m: int = 1) -> int:
+    """32-bit words (4 columns each) a thread loads per packed row: 4
+    (16-byte loads) for B1's per-weight-scale bodies where the row allows
+    them; 2 for the scale-folded and mxu8 bodies at one m-tile (their
+    second set of C fragments leaves no registers for more); else 1."""
+    if name in ("dequant_gemv", "dequant_gemv_mxuflat"):
+        return 4 if n % 16 == 0 else 1
+    if name in ("dequant_gemv_mxu", "dequant_gemv_fold",
+                "dequant_gemv_mxu8"):
+        return 2 if m <= 16 and n % 8 == 0 else 1
+    return 1
+
+
+def _occupancy_query(name: str):
+    """(m, kind, cw) -> resident blocks per SM of the variant a launch of
+    counter `name` takes."""
+    if name in _VARIANT_BODY:
+        q = _native.kernel("dequant_variants",
+                           "bigdl_dequant_variant_blocks_per_sm")
+        body = _VARIANT_BODY[name]
+        return lambda m, kind, cw: q(body, m, kind, cw)
+    lib = "dequant_mxu8" if name == "dequant_gemv_mxu8" else name
+    return _native.kernel(lib, f"bigdl_{lib}_blocks_per_sm")
 
 
 def _split_k(name: str, m: int, n: int, kp: int, kind: int, cw: int,
@@ -145,11 +317,12 @@ def _split_k(name: str, m: int, n: int, kp: int, kind: int, cw: int,
     """(split, chunks per split): cut K (in 64-row chunks) into as many
     splits as keep every block of the launch (``tiles`` row tiles of
     column strips) resident at once (one wave), with no empty split."""
-    tier = (m <= 16) if name == "dequant_gemv" else (m <= 64)  # m-tiles
+    gemv = name.startswith("dequant_gemv")
+    tier = (m <= 16) if gemv else (m <= 64)                    # m-tiles
     key = (name, tier, kind, cw, device.index)
     occ = _occupancy.get(key)
     if occ is None:
-        occ = _native.kernel(name, f"bigdl_{name}_blocks_per_sm")(m, kind, cw)
+        occ = _occupancy_query(name)(m, kind, cw)
         if occ <= 0:
             raise RuntimeError(f"{name}: occupancy query failed")
         _occupancy[key] = occ
@@ -165,38 +338,60 @@ def _launch(name: str, x: torch.Tensor, w: QTensor) -> torch.Tensor:
     m, kp = x2.shape
     n = w.n
     kind = _kind(w)
-    cw = _cw(name, n)
+    cw = _cw(name, n, m)
     split, per = _split_k(name, m, n, kp, kind, cw, x2.device)
     ws = (torch.empty((split, m, n), dtype=torch.float32, device=x2.device)
           if split > 1 else None)
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
-    err = _native.kernel(name)(
-        x2.data_ptr(), w.data.data_ptr(), w.scale.data_ptr(),
-        None if w.zero is None else w.zero.data_ptr(),
-        _lut_ptr(w, x2.device), None if ws is None else ws.data_ptr(),
-        y.data_ptr(), m, kp, n, w.qt.block_size, kind, split, per, cw,
-        torch.cuda.current_stream(x2.device).cuda_stream)
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    wsp = None if ws is None else ws.data_ptr()
+    if name == "dequant_gemv_mxu8":
+        xq, sx = quantize_x_q8(x2)
+        err = _native.kernel("dequant_mxu8")(
+            xq.data_ptr(), sx.data_ptr(), w.data.data_ptr(),
+            w.scale.data_ptr(), wsp, y.data_ptr(), m, kp, n, kind, split,
+            per, cw, stream)
+    elif name in _VARIANT_BODY:
+        err = _native.kernel("dequant_variants")(
+            _VARIANT_BODY[name], x2.data_ptr(), w.data.data_ptr(),
+            w.scale.data_ptr(), _lut_ptr(w, x2.device), wsp, y.data_ptr(),
+            m, kp, n, w.qt.block_size, kind, split, per, cw, stream)
+    else:
+        err = _native.kernel(name)(
+            x2.data_ptr(), w.data.data_ptr(), w.scale.data_ptr(),
+            None if w.zero is None else w.zero.data_ptr(),
+            _lut_ptr(w, x2.device), wsp, y.data_ptr(), m, kp, n,
+            w.qt.block_size, kind, split, per, cw, stream)
     _native.check(name, err)
     LAUNCHES[name] += 1
     return y
 
 
-def dequant_gemv(x: torch.Tensor, w: QTensor) -> torch.Tensor:
-    """B1: x [M <= 32, K] @ W [K, N] -> bf16 [M, N]."""
+def dequant_gemv(x: torch.Tensor, w: QTensor, body: str = "std"
+                 ) -> torch.Tensor:
+    """B1: x [M <= 32, K] @ W [K, N] -> bf16 [M, N] through `body`
+    (std, mxu, fold, mxuflat or mxu8; see the module docstring)."""
+    if body not in _GEMV:
+        raise ValueError(f"dequant_gemv: unknown body {body!r}")
+    _check_body(body, w)
     if x.device.type == "cpu":
-        return plain_q_matmul(x, w)
+        return _PLAIN[body](x, w)
     if not 1 <= x.shape[0] <= GEMV_MAX_M:
         raise ValueError(f"dequant_gemv: M={x.shape[0]} outside "
                          f"[1, {GEMV_MAX_M}]")
-    return _launch("dequant_gemv", x, w)
+    return _launch(_GEMV[body], x, w)
 
 
-def dequant_gemm(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+def dequant_gemm(x: torch.Tensor, w: QTensor, body: str = "std"
+                 ) -> torch.Tensor:
     """B2: x [M <= 128, K] @ W [K, N] -> bf16 [M, N] (the engine sends it
-    32 < M <= 128)."""
+    32 < M <= 128) through `body` (std, or i4 for the int4 layout)."""
+    if body not in _GEMM:
+        raise ValueError(f"dequant_gemm: unknown body {body!r}")
+    _check_body(body, w)
     if x.device.type == "cpu":
-        return plain_q_matmul(x, w)
+        return _PLAIN[body](x, w)
     if not 1 <= x.shape[0] <= GEMM_MAX_M:
         raise ValueError(f"dequant_gemm: M={x.shape[0]} outside "
                          f"[1, {GEMM_MAX_M}]")
-    return _launch("dequant_gemm", x, w)
+    return _launch(_GEMM[body], x, w)

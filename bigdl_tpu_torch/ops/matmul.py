@@ -1,17 +1,28 @@
 """Quantized linear: ``q_matmul`` / ``linear`` / ``q_linear``
 (counterpart of ``bigdl_tpu/ops/matmul.py``).
 
-Dispatch mirrors ``_q_matmul_dispatch``: with M the number of rows,
+Kernel dispatch (the default backend) mirrors ``_q_matmul_dispatch`` and
+``q_matmul_pallas_impl``: with M the number of rows,
 
-- M <= 32: the decode GEMV kernel B1 (``ops/cuda/dequant_matmul``);
-- 32 < M <= ``flags().matmul_max_m`` (128): the tiled dequant GEMM B2;
+- M <= 32: the decode GEMV kernel B1 (``ops/cuda/dequant_matmul``), whose
+  body ``matmul_gemv`` (``BIGDL_TPU_TORCH_MATMUL_GEMV``) and the weight's
+  layout pick (``pick_gemv_body``: ``mxu`` on a prepacked int4-layout
+  weight, the standard body on the canonical packing, by default); with
+  ``matmul_gemv`` ``off`` these rows go to B2;
+- 32 < M <= ``flags().matmul_max_m`` (128): the tiled dequant GEMM B2,
+  its ``i4`` body on the int4 layout;
 - larger M: dequantize to bf16, then a plain ``torch.matmul`` (the JAX
   package leaves this case to XLA's dequantize-then-matmul plan too).
 
-On CPU tensors the two kernel wrappers run their plain version, which is
-the same function as the large-M path. On a CUDA tensor they launch their
-kernel or raise (a qtype or shape the kernels do not take is an error,
-not a reason to fall back).
+On CPU tensors the kernel wrappers run their bodies' plain versions. On a
+CUDA tensor they launch their kernel or raise (a qtype, layout or shape a
+body does not take is an error, not a reason to fall back).
+
+``backend="xla"`` runs the plain dequantize-then-matmul path at every M
+and ``backend="xla_fused"`` the scale-folded plain path
+(``_q_matmul_xla_fused`` of the JAX package, which raises
+``NotImplementedError`` for a qtype whose dequant does not factor, fp4),
+on any device: the JAX package's backend switch, for comparisons.
 """
 
 from __future__ import annotations
@@ -24,21 +35,36 @@ from bigdl_tpu_torch.config import flags
 from bigdl_tpu_torch.ops.cuda.dequant_matmul import (GEMV_MAX_M,
                                                      dequant_gemm,
                                                      dequant_gemv,
-                                                     plain_q_matmul)
+                                                     pick_gemv_body,
+                                                     plain_q_matmul,
+                                                     plain_q_matmul_fused)
 from bigdl_tpu_torch.ops.quant import QTensor
 
+BACKENDS = ("auto", "xla", "xla_fused")
 
-def q_matmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+
+def q_matmul(x: torch.Tensor, w: QTensor, *,
+             backend: Optional[str] = None) -> torch.Tensor:
     """x [..., K] @ W for a quantized W of logical shape [K, N]; returns
-    [..., N] in x.dtype."""
+    [..., N] in x.dtype. `backend`: None or "auto" (the kernels), "xla"
+    or "xla_fused" (the plain paths)."""
+    be = backend or "auto"
+    if be not in BACKENDS:
+        raise ValueError(f"unknown matmul backend {backend!r}; choose from "
+                         f"{BACKENDS}")
     k, n = w.shape
     batch = x.shape[:-1]
     x2 = x.reshape(-1, k)
     m = x2.shape[0]
-    if m <= GEMV_MAX_M:
-        y = dequant_gemv(x2, w)
-    elif m <= flags().matmul_max_m:
-        y = dequant_gemm(x2, w)
+    f = flags()
+    if be == "xla":
+        y = plain_q_matmul(x2, w)
+    elif be == "xla_fused":
+        y = plain_q_matmul_fused(x2, w)
+    elif m <= GEMV_MAX_M and f.matmul_gemv != "off":
+        y = dequant_gemv(x2, w, pick_gemv_body(f.matmul_gemv, w))
+    elif m <= f.matmul_max_m:
+        y = dequant_gemm(x2, w, "i4" if w.is_int4 else "std")
     else:
         y = plain_q_matmul(x2, w)
     return y.to(x.dtype).reshape(*batch, n)

@@ -15,6 +15,14 @@ layout is the JAX package's, so both packages compute on the same bytes:
 ``Kp`` is K rounded up to a block multiple. Planes may carry leading
 dims (layer-stacked weights ``[L, ...]``, MoE expert stacks ``[L, E, ...]``);
 ``shape`` stays the logical ``(K, N)`` of one matrix.
+
+sym_int4 has a second layout, the int4 layout ``to_mxu_layout`` relays
+it into at load time (the JAX package's ``jnp.int4`` data, "MXU layout").
+torch has no int4 dtype, so the port keeps it packed: ``data`` is uint8
+``[..., Kp/2, N]`` and byte (i, n) holds the signed codes ``c - 8`` of K
+rows 2i (low nibble) and 2i + 1 (high nibble) in two's complement. A
+QTensor names its layout (``layout``: ``"canonical"`` or ``"int4"``): both
+are uint8, so the dtype cannot tell them apart.
 """
 
 from __future__ import annotations
@@ -58,6 +66,9 @@ QTYPES["q8_0"] = QTYPES["sym_int8"]
 
 FLOAT_QTYPES = ("fp16", "bf16", "fp32")
 
+LAYOUT_CANONICAL = "canonical"
+LAYOUT_INT4 = "int4"
+
 
 def get_qtype(name: str) -> QType:
     try:
@@ -78,6 +89,8 @@ class QTensor:
     zero:  bfloat16 ``[..., Kp/B, N]`` for asym kinds, else None.
     qtype: qtype name.
     shape: logical (K, N) of one matrix (leading plane dims excluded).
+    layout: ``"canonical"`` (split-block) or ``"int4"`` (sym_int4 only,
+           K-row pairs, see the module docstring).
     """
 
     data: torch.Tensor
@@ -85,6 +98,7 @@ class QTensor:
     zero: Optional[torch.Tensor]
     qtype: str
     shape: Tuple[int, int]
+    layout: str = "canonical"
 
     @property
     def qt(self) -> QType:
@@ -108,7 +122,13 @@ class QTensor:
         return self.data.device
 
     @property
+    def is_int4(self) -> bool:
+        return self.layout == LAYOUT_INT4
+
+    @property
     def nbytes(self) -> int:
+        # the int4 layout is packed two codes a byte, as XLA stores jnp.int4,
+        # so the JAX package's count for it is the same byte count
         tot = self.data.numel() * self.data.element_size()
         tot += self.scale.numel() * self.scale.element_size()
         if self.zero is not None:
@@ -119,12 +139,18 @@ class QTensor:
         """One matrix of a layer-stacked QTensor (views, no copy)."""
         return QTensor(self.data[i], self.scale[i],
                        None if self.zero is None else self.zero[i],
-                       self.qtype, self.shape)
+                       self.qtype, self.shape, self.layout)
+
+    def _canonical_only(self, what: str) -> None:
+        if self.is_int4:
+            raise ValueError(f"{what} reads the canonical packing; this "
+                             f"{self.qtype} QTensor has the int4 layout")
 
     def take(self, ids: torch.Tensor) -> "QTensor":
         """The matrices at ``ids`` (an int tensor on the planes' device)
         of a stacked QTensor, as a new ``[len(ids), ...]`` stack: one
         ``index_select`` per plane, no host sync."""
+        self._canonical_only("QTensor.take")
         return QTensor(self.data.index_select(0, ids),
                        self.scale.index_select(0, ids),
                        None if self.zero is None
@@ -135,16 +161,18 @@ class QTensor:
         """Leading-axis strides of the (data, scale) planes in elements
         (the zero plane shares the scale plane's): the distance from one
         expert's matrix to the next in an ``[E, ...]`` stack."""
+        self._canonical_only("QTensor.plane_strides")
         return self.data.stride(0), self.scale.stride(0)
 
     def to(self, device) -> "QTensor":
         return QTensor(self.data.to(device), self.scale.to(device),
                        None if self.zero is None else self.zero.to(device),
-                       self.qtype, self.shape)
+                       self.qtype, self.shape, self.layout)
 
     def __repr__(self):
+        lay = ", layout=int4" if self.is_int4 else ""
         return (f"QTensor({self.qtype}, shape={self.shape}, "
-                f"block={self.qt.block_size})")
+                f"block={self.qt.block_size}{lay})")
 
 
 def _safe_inv(x: torch.Tensor) -> torch.Tensor:
@@ -274,6 +302,10 @@ def dequantize(qt: QTensor, dtype=torch.bfloat16) -> torch.Tensor:
         vals = qt.data.to(torch.float32)
         out = vals * _expand_scale(qt.scale, b, kp)
         return out[:k].to(dtype)
+    if qt.is_int4:                          # signed codes, K-row pairs
+        vals = unpack_int4_rows(qt.data).to(torch.float32)
+        out = vals * _expand_scale(qt.scale, b, vals.shape[0])
+        return out[:k].to(dtype)
     codes = _unpack4(qt.data, b)
     kp = codes.shape[0]
     if t.kind == "codebook":
@@ -294,8 +326,12 @@ def concat_qtensors_n(ws) -> QTensor:
     """Concatenate QTensors along N (the output dim). Blocks run along K
     and columns quantize independently, so the result is bit-identical to
     quantizing the concatenated dense weight. Works on layer-stacked
-    planes, since every plane is N-last."""
+    planes, and on the int4 layout (which packs along K), since every
+    plane is N-last."""
     w0 = ws[0]
+    if len({w.layout for w in ws}) != 1:
+        raise ValueError(f"cannot concat mixed layouts: "
+                         f"{[w.layout for w in ws]}")
     if len({w.qtype for w in ws}) != 1:
         raise ValueError(f"cannot concat mixed qtypes: {[w.qtype for w in ws]}")
     if len({w.shape[0] for w in ws}) != 1:
@@ -307,7 +343,7 @@ def concat_qtensors_n(ws) -> QTensor:
         torch.cat([w.data for w in ws], dim=-1),
         torch.cat([w.scale for w in ws], dim=-1),
         None if zeros[0] is None else torch.cat(zeros, dim=-1),
-        w0.qtype, (w0.shape[0], sum(w.shape[1] for w in ws)))
+        w0.qtype, (w0.shape[0], sum(w.shape[1] for w in ws)), w0.layout)
 
 
 def split_qtensor_n(w: QTensor, sizes) -> list:
@@ -319,6 +355,156 @@ def split_qtensor_n(w: QTensor, sizes) -> list:
         outs.append(QTensor(
             w.data[..., off:off + s], w.scale[..., off:off + s],
             None if w.zero is None else w.zero[..., off:off + s],
-            w.qtype, (w.shape[0], s)))
+            w.qtype, (w.shape[0], s), w.layout))
         off += s
     return outs
+
+
+# ---------------------------------------------------------------------------
+# int4 layout (the JAX package's int4-dtype "MXU" layout), packed two a byte
+
+# bytes of input a relayout step reads: bounds the transient of a leaf's
+# conversion to a few times this, whatever the leaf's size
+_RELAYOUT_CHUNK = 64 << 20
+
+
+def pack_int4_rows(codes: torch.Tensor) -> torch.Tensor:
+    """Signed codes [..., K, N] (int8 in [-8, 7], K even) -> the int4
+    layout's bytes [..., K/2, N]: row 2i in the low nibble, 2i + 1 in the
+    high nibble, two's complement."""
+    *lead, k, n = codes.shape
+    c = codes.reshape(*lead, k // 2, 2, n).to(torch.uint8) & 0x0F
+    return c[..., 0, :] | (c[..., 1, :] << 4)
+
+
+def unpack_int4_rows(packed: torch.Tensor) -> torch.Tensor:
+    """The int4 layout's bytes [..., K/2, N] -> signed int8 codes
+    [..., K, N] (sign-extended nibbles)."""
+    *lead, k2, n = packed.shape
+    lo = (packed << 4).view(torch.int8) >> 4
+    hi = packed.view(torch.int8) >> 4
+    return torch.stack([lo, hi], dim=-2).reshape(*lead, 2 * k2, n)
+
+
+def _relayout(data: torch.Tensor, fn, rows: int) -> torch.Tensor:
+    """Apply `fn` ([c, rows, N] -> [c, rows, N] uint8) to each group of
+    `rows` packed rows of `data` (any leading dims), a bounded number of
+    groups at a time, into a new tensor on data's device."""
+    n = data.shape[-1]
+    src = data.reshape(-1, rows, n)
+    out = torch.empty_like(src)
+    step = max(1, _RELAYOUT_CHUNK // (rows * n))
+    for g in range(0, src.shape[0], step):
+        out[g:g + step] = fn(src[g:g + step])
+    return out.reshape(data.shape)
+
+
+def _split_to_pairs(blk: torch.Tensor) -> torch.Tensor:
+    """One quant block's 16 split-block bytes (rows j | j + 16 << 4) ->
+    its 16 int4-layout bytes (rows 2i | 2i + 1 << 4); c - 8 in two's
+    complement is c ^ 8."""
+    codes = torch.cat([blk & 0x0F, blk >> 4], dim=1) ^ 0x08  # [c, 32, N]
+    return codes[:, 0::2] | (codes[:, 1::2] << 4)
+
+
+def _pairs_to_split(blk: torch.Tensor) -> torch.Tensor:
+    codes = torch.stack([blk & 0x0F, blk >> 4], dim=2).reshape(
+        blk.shape[0], 32, blk.shape[2]) ^ 0x08
+    return codes[:, :16] | (codes[:, 16:] << 4)
+
+
+def to_mxu_layout(qt: QTensor) -> QTensor:
+    """sym_int4 canonical (split-block) -> the int4 layout, on the planes'
+    device (``to_mxu_layout`` of the JAX package, done once at load).
+    Scales and zeros are shared, not copied; the data plane is rewritten
+    into a new tensor a bounded chunk at a time, so the transient beside
+    the leaf stays small and nothing goes through the host. Other qtypes,
+    int4-layout leaves and 4-D ``[L, E, K/2, N]`` expert stacks (which B6
+    and the MoE decode gather read in the canonical packing) pass
+    through. A failed conversion raises: no leaf is left behind in the
+    canonical layout by a fallback."""
+    if qt.qtype not in ("sym_int4",) or qt.is_int4:
+        return qt
+    if qt.data.dim() >= 4:
+        return qt
+    if qt.qt.block_size != 32 or qt.data.dtype != torch.uint8:
+        raise ValueError(f"to_mxu_layout: unexpected sym_int4 planes "
+                         f"{qt.data.dtype}, block {qt.qt.block_size}")
+    data = _relayout(qt.data, _split_to_pairs, 16)
+    return dataclasses.replace(qt, data=data, layout=LAYOUT_INT4)
+
+
+def from_mxu_layout(qt: QTensor) -> QTensor:
+    """Inverse of `to_mxu_layout`: the canonical bytes, bit for bit (what
+    ``save_low_bit`` writes)."""
+    if not qt.is_int4:
+        return qt
+    data = _relayout(qt.data, _pairs_to_split, 16)
+    return dataclasses.replace(qt, data=data, layout=LAYOUT_CANONICAL)
+
+
+def _map_leaves(tree, fn):
+    """Replace every QTensor leaf of a dict tree by fn(leaf), in the
+    tree's own dicts, one leaf at a time: a leaf is dropped as soon as its
+    replacement exists, so a caller that owns the tree never holds two
+    copies of it."""
+    if isinstance(tree, QTensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        for k in list(tree):
+            tree[k] = _map_leaves(tree[k], fn)
+    return tree
+
+
+def tree_to_mxu_layout(tree):
+    """`to_mxu_layout` on every QTensor of a tree (dicts updated in place;
+    returns the tree)."""
+    return _map_leaves(tree, to_mxu_layout)
+
+
+def tree_from_mxu_layout(tree):
+    """`from_mxu_layout` on every QTensor of a tree (dicts updated in
+    place; returns the tree)."""
+    return _map_leaves(tree, from_mxu_layout)
+
+
+def _on_cuda(tree) -> bool:
+    if isinstance(tree, QTensor):
+        return tree.data.is_cuda
+    if isinstance(tree, torch.Tensor):
+        return tree.is_cuda
+    return isinstance(tree, dict) and any(_on_cuda(v) for v in tree.values())
+
+
+def prepack_tree(tree, mode: Optional[str] = None):
+    """Load-time prepack (``prepack_tree`` of the JAX package): every
+    sym_int4 QTensor of the tree goes to the int4 layout, which the decode
+    body ``mxu`` and the prefill body ``i4`` read. `mode` is "auto"
+    (prepack when the parameters live on a CUDA device), "on" or "off";
+    None reads ``BIGDL_TPU_TORCH_PREPACK``. Either that flag or
+    ``BIGDL_TPU_TORCH_MXU_LAYOUT`` set to "off" disables the prepack, and
+    either set to "on" forces it. The tree's dicts are updated in place,
+    leaf by leaf. Returns (tree, report), the report the JAX package's: mode,
+    applied, qtensors, converted, bytes_packed."""
+    from bigdl_tpu_torch.config import flags, resolve_prepack
+
+    f = flags()
+    mode = resolve_prepack(mode) if mode is not None else f.prepack
+    report = {"mode": mode, "applied": False,
+              "qtensors": 0, "converted": 0, "bytes_packed": 0}
+    off = mode == "off" or f.mxu_layout == "off"
+    force = mode == "on" or f.mxu_layout == "on"
+    if off or (not force and not _on_cuda(tree)):
+        return tree, report
+
+    def conv(x: QTensor) -> QTensor:
+        report["qtensors"] += 1
+        y = to_mxu_layout(x)
+        if y.layout != x.layout:
+            report["converted"] += 1
+        report["bytes_packed"] += int(y.nbytes)
+        return y
+
+    tree = _map_leaves(tree, conv)
+    report["applied"] = report["converted"] > 0
+    return tree, report

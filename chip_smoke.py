@@ -17,7 +17,13 @@ Phases, all of them on every run, each printing one JSON line:
    densely, and B6 each tile of B2 at B2's K split. B3, B4 and B5 run
    again over fp8_e5m2, int8 and int4 caches (codes and f32 scales; the
    yardstick dequantizes, then calls SDPA), timed at the main path's
-   shapes, B5 bit-equal to B3 for each kind.
+   shapes, B5 bit-equal to B3 for each kind. B1's mxu, fold, mxuflat and
+   mxu8 bodies and B2's i4 body run against their own plain versions,
+   timed on Llama-2-7B's gate_up (4096 x 22016) at M 8 (i4: 128) over the
+   int4 layout (fold over the canonical sym_int4, nf4 and sym_int8, mxu8
+   over sym_int8 too), and checked at the other m-tile counts; mxu (M 1,
+   8) and i4 (M 64, 128), the load path's defaults, are also checked on
+   each of the other four Llama-2-7B linears.
 4. reference: a 2-layer cut of the full-width model, prefill + one decode
    step on the card (kernels) against the same on the CPU (plain).
 5. engine: seeded full-width Llama-2-7B, sym_int4 linears, merged
@@ -48,17 +54,32 @@ Phases, all of them on every run, each printing one JSON line:
    streams must equal the slab engine's at the same kind, the radix must
    hit 3 times, copy-on-write must copy, and B5's body for the kind must
    launch.
-11. model_moe: the Llama model is freed, and full-width, full-depth
+11. reference_prepack: the load entry point. The 2-layer cut is written
+   with ``save_low_bit`` and loaded with
+   ``AutoModelForCausalLM.load_low_bit(device="cuda")``, whose prepack
+   relays every sym_int4 leaf into the int4 layout: every leaf must relay
+   back to the saved bytes, the card forward must run the mxu (decode) and
+   i4 (prefill) bodies and no std B1/B2 body, and its logits must agree
+   with the CPU's plain versions as in the reference phase.
+12. engine_prepack: the eight requests once under matmul_gemv ``fold`` on
+   the canonical model (the fold body must launch); then the full model
+   becomes ``TpuCausalLM(params)``, prepacked in place on the card (load
+   time and peak memory reported), and ``LLMEngine(model)`` serves the
+   eight requests twice and a profiled decode window: every request
+   finishes, streams repeat, mxu and i4 launch and std B1/B2 do not, peak
+   memory is within 1% of the engine phase's; then once under
+   ``mxuflat`` and once under ``mxu8`` (each body must launch).
+13. model_moe: the Llama model is freed, and full-width, full-depth
    Mixtral-8x7B (sym_int4 linears, random weights from seed 0) is built
    on the card.
-12. reference_moe: a 2-layer cut, 8 prompts of 32 tokens then one decode
+14. reference_moe: a 2-layer cut, 8 prompts of 32 tokens then one decode
    step (both through B6) on the card, against the same on the CPU with
    the ragged dispatch on B6's plain version.
-13. engine_moe: the engine phase's eight requests through ``LLMEngine``
+15. engine_moe: the engine phase's eight requests through ``LLMEngine``
    serving Mixtral, twice: every request finishes, greedy and seeded
    streams repeat, B1-B4 and B6 launch, B6 in prefill and in decode; then
    a profiled decode window.
-14. engine_moe_gather: four greedy requests at max_batch 4, so decode
+16. engine_moe_gather: four greedy requests at max_batch 4, so decode
    gathers the chosen experts (N * k = 8 <= E): streams repeat, and B1
    launches during decode-only steps while B6 does not.
 
@@ -99,6 +120,24 @@ KERNELS = {
     "dequant_gemm": dict(
         source="bigdl_tpu_torch/csrc/dequant_gemm.cu",
         replaces="bigdl_tpu/ops/pallas/dequant_matmul.py:641"),
+    # B1's and B2's other bodies: the int4 layout a load prepacks sym_int4
+    # weights into (mxu: the decode default of a loaded model; i4: its
+    # prefill chunks) and the flag-selected bodies
+    "dequant_gemv_mxu": dict(
+        source="bigdl_tpu_torch/csrc/dequant_variants.cu",
+        replaces="bigdl_tpu/ops/pallas/dequant_matmul.py:234"),
+    "dequant_gemv_fold": dict(
+        source="bigdl_tpu_torch/csrc/dequant_variants.cu",
+        replaces="bigdl_tpu/ops/pallas/dequant_matmul.py:172"),
+    "dequant_gemv_mxuflat": dict(
+        source="bigdl_tpu_torch/csrc/dequant_variants.cu",
+        replaces="bigdl_tpu/ops/pallas/dequant_matmul.py:265"),
+    "dequant_gemv_mxu8": dict(
+        source="bigdl_tpu_torch/csrc/dequant_mxu8.cu",
+        replaces="bigdl_tpu/ops/pallas/dequant_matmul.py:284"),
+    "dequant_gemm_i4": dict(
+        source="bigdl_tpu_torch/csrc/dequant_variants.cu",
+        replaces="bigdl_tpu/ops/pallas/dequant_matmul.py:133"),
     "decode_attention": dict(
         source="bigdl_tpu_torch/csrc/decode_attention.cu",
         replaces="bigdl_tpu/ops/pallas/decode_attention.py:201"),
@@ -228,12 +267,13 @@ def phase_build():
                         for k, v in paths.items()}})
 
 
-def _matmul_case(timer, name, x, w, kernel_fn, iters):
+def _matmul_case(timer, name, x, w, kernel_fn, iters, plain_fn=None):
     from bigdl_tpu_torch.ops.cuda.dequant_matmul import plain_q_matmul
     from bigdl_tpu_torch.ops.quant import dequantize
 
+    plain_fn = plain_fn or plain_q_matmul
     got = kernel_fn(x, w)
-    want = plain_q_matmul(x, w)
+    want = plain_fn(x, w)
     torch.cuda.synchronize()
     err = max_err(got, want)
     ok = allclose(got, want, MATMUL_TOL)
@@ -241,13 +281,13 @@ def _matmul_case(timer, name, x, w, kernel_fn, iters):
     n = w.n
     nbytes = (m * k * 2 + w.nbytes + m * n * 2)
     b_ms, b_by = bound_ms(nbytes, 2.0 * m * k * n)
-    rec = {"kernel": name, "qtype": w.qtype, "M": m, "K": k, "N": n,
-           "max_abs_err": err, "tol": MATMUL_TOL, "ok": ok,
+    rec = {"kernel": name, "qtype": w.qtype, "layout": w.layout, "M": m,
+           "K": k, "N": n, "max_abs_err": err, "tol": MATMUL_TOL, "ok": ok,
            "bound_ms": b_ms, "bound_by": b_by}
     if iters:
         dense = dequantize(w, torch.bfloat16)
         rec["ms"] = timer.ms(lambda: kernel_fn(x, w), iters)
-        rec["plain_ms"] = timer.ms(lambda: plain_q_matmul(x, w), iters)
+        rec["plain_ms"] = timer.ms(lambda: plain_fn(x, w), iters)
         # library yardstick: dequantize to bf16, then one cuBLAS GEMM; and
         # the GEMM alone on the pre-dequantized weight (a dense bf16 layer)
         rec["library_ms"] = timer.ms(
@@ -612,6 +652,12 @@ def phase_kernels(timer):
             records.append(rec)
             emit({"phase": "kernels", **rec})
 
+    # the int4-layout and scale-folded bodies (B1 mxu, fold, mxuflat,
+    # mxu8; B2 i4), each against its own plain version: timed on
+    # Llama-2-7B's gate_up at the decode batch (B2: a 128-row prefill
+    # chunk), fold also over nf4 and sym_int8 and mxu8 over sym_int8
+    records += _variant_cases(timer, randn)
+
     # geometry the timed cases do not reach: two m-tiles, and the 4-column
     # loads B1 takes when N % 16 != 0
     for m, k, n in ((20, 4096, 4096), (8, 640, 260)):
@@ -733,6 +779,81 @@ def phase_kernels(timer):
     return records
 
 
+def _variant_cases(timer, randn):
+    from bigdl_tpu_torch.ops.cuda import dequant_matmul as dm
+    from bigdl_tpu_torch.ops.quant import quantize, to_mxu_layout
+
+    def gemv(body):
+        return lambda x, w: dm.dequant_gemv(x, w, body)
+
+    def i4(x, w):
+        return dm.dequant_gemm(x, w, "i4")
+
+    records = []
+
+    def run(name, fn, plain, w, m, k, iters, **extra):
+        x = randn(m, k).to(torch.bfloat16)
+        rec = _matmul_case(timer, name, x, w, fn, iters, plain_fn=plain)
+        rec.update(extra)
+        records.append(rec)
+        emit({"phase": "kernels", **rec})
+
+    bodies = (("dequant_gemv_mxu", gemv("mxu"), dm.plain_q_matmul_fused),
+              ("dequant_gemv_mxuflat", gemv("mxuflat"), dm.plain_q_matmul),
+              ("dequant_gemv_mxu8", gemv("mxu8"), dm.plain_q_matmul_q8))
+    fold = ("dequant_gemv_fold", gemv("fold"), dm.plain_q_matmul_fused)
+    # the load path's defaults (mxu decode, i4 prefill chunk) at every
+    # linear a prepacked Llama-2-7B runs them on, untimed: each linear's
+    # weight loads and split-K count differ from gate_up's
+    for lname, (k, n) in LLAMA2_7B_LINEARS.items():
+        if lname == "gate_up_proj":
+            continue
+        wm = to_mxu_layout(quantize(randn(k, n, scale=0.02), "sym_int4"))
+        for m in (1, 8):
+            run(*bodies[0], wm, m, k, 0, linear=lname)
+        for m in (64, 128):
+            run("dequant_gemm_i4", i4, dm.plain_q_matmul, wm, m, k, 0,
+                linear=lname)
+        del wm
+    k, n = LLAMA2_7B_LINEARS["gate_up_proj"]
+    for qtype in ("sym_int4", "nf4", "sym_int8"):
+        w = quantize(randn(k, n, scale=0.02), qtype)
+        run(*fold, w, 8, k, 10, linear="gate_up_proj")
+        if qtype == "sym_int8":
+            run(*bodies[2], w, 8, k, 10, linear="gate_up_proj")
+        if qtype != "sym_int4":
+            continue
+        wm = to_mxu_layout(w)
+        for body in bodies:
+            run(*body, wm, 8, k, 10, linear="gate_up_proj")
+        run("dequant_gemm_i4", i4, dm.plain_q_matmul, wm, 128, k, 10,
+            linear="gate_up_proj")
+        # the other m-tile counts and words a thread, untimed
+        for m in (1, 17, 32):
+            for body in bodies:
+                run(*body, wm, m, k, 0, linear="gate_up_proj")
+            run(*fold, w, m, k, 0, linear="gate_up_proj")
+        for m in (40, 64):
+            run("dequant_gemm_i4", i4, dm.plain_q_matmul, wm, m, k, 0,
+                linear="gate_up_proj")
+        del wm
+    # a K-padded shape and the one-word loads (N % 8 != 0), untimed
+    for k, n in ((1000, 512), (640, 260)):
+        for qtype in ("sym_int4", "nf4", "sym_int8"):
+            w = quantize(randn(k, n, scale=0.05), qtype)
+            for m in (8, 20):
+                run(*fold, w, m, k, 0)
+            if qtype == "sym_int8":
+                run(*bodies[2], w, 8, k, 0)
+            if qtype == "sym_int4":
+                wm = to_mxu_layout(w)
+                for body in bodies:
+                    for m in (8, 20):
+                        run(*body, wm, m, k, 0)
+                run("dequant_gemm_i4", i4, dm.plain_q_matmul, wm, 96, k, 0)
+    return records
+
+
 def _cut_params(params, n_layers):
     from bigdl_tpu_torch.ops.quant import QTensor
 
@@ -740,7 +861,7 @@ def _cut_params(params, n_layers):
         if isinstance(w, QTensor):
             return QTensor(w.data[:n_layers], w.scale[:n_layers],
                            None if w.zero is None else w.zero[:n_layers],
-                           w.qtype, w.shape)
+                           w.qtype, w.shape, w.layout)
         return w[:n_layers]
 
     return {**params, "layers": {k: cut(v)
@@ -760,10 +881,12 @@ def _to_device(params, device):
     return mv(params)
 
 
-def phase_reference(params, cfg, kind="bf16"):
+def phase_reference(params, cfg, kind="bf16", cut=None, extra=None):
     """2-layer cut: prefill 128 tokens (B2, B4) + one decode step (B1, B3)
     on the card against the plain versions on the CPU, over a KV cache of
-    storage `kind` (phase ``reference_kv`` for the quantized kinds).
+    storage `kind` (phase ``reference_kv`` for the quantized kinds). `cut`
+    replaces the cut of `params` with given 2-layer parameters on the card
+    (phase ``reference_prepack``), `extra` joins the emitted record.
     Rounding to a code is discontinuous: a K or V value within the two
     devices' bf16 noise of a rounding edge takes neighbouring codes on
     each, one step of amax / 7 apart at int4. So for int8/int4 the CPU run
@@ -776,7 +899,7 @@ def phase_reference(params, cfg, kind="bf16"):
     from bigdl_tpu_torch.ops import kvcache
 
     cut_cfg = dataclasses.replace(cfg, num_hidden_layers=2)
-    gpu_params = _cut_params(params, 2)
+    gpu_params = _cut_params(params, 2) if cut is None else cut
     cpu_params = _to_device(gpu_params, "cpu")
     rng = np.random.default_rng(3)
     prompt = torch.tensor(rng.integers(0, cfg.vocab_size, (1, 128)))
@@ -796,9 +919,12 @@ def phase_reference(params, cfg, kind="bf16"):
         flips[2] += 1
         return codes, scales
 
+    from bigdl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
     out = {}
     for dev, p in (("cuda", gpu_params), ("cpu", cpu_params)):
         kvcache.quantize_kv = record if dev == "cuda" else replay
+        reset_launch_counts()
         try:
             cache = llama.new_cache(cut_cfg, 1, 256, device=dev,
                                     kv_cache_dtype=kind)
@@ -807,9 +933,12 @@ def phase_reference(params, cfg, kind="bf16"):
                 lg2, cache = llama.forward(p, cut_cfg, nxt.to(dev), cache)
         finally:
             kvcache.quantize_kv = quantize
+        if dev == "cuda":
+            card = {k: v for k, v in launch_counts().items() if v}
         out[dev] = (lg1.float().cpu(), lg2.float().cpu())
     res = {"phase": "reference" if kind == "bf16" else "reference_kv",
-           "kv": kind, "layers": 2, "prompt": 128}
+           "kv": kind, "layers": 2, "prompt": 128, "card_launches": card,
+           **(extra or {})}
     if kind in ("int8", "int4"):
         res.update(quantize_calls=flips[2], code_bytes=flips[1],
                    code_bytes_stored_otherwise_on_cpu=flips[0])
@@ -827,8 +956,9 @@ def phase_reference(params, cfg, kind="bf16"):
                      "finite": fin, "top1_agree": top1, "ok": good}
         ok &= good
     emit(res)
-    require(ok, f"card forward disagrees with the CPU plain forward ({kind} "
-            f"KV cache)")
+    require(ok, f"card forward disagrees with the CPU plain forward "
+            f"({res['phase']}, {kind} KV cache)")
+    return res
 
 
 def _run_requests(eng, requests):
@@ -879,6 +1009,7 @@ def _run_requests(eng, requests):
 
 def _kernel_group(name: str) -> str:
     for key, group in (("ragged_mma", "ragged_expert_matmul (B6)"),
+                       ("q8_mma", "dequant_gemv_mxu8 (B1)"),
                        ("dequant_mma", "dequant_gemv/gemm (B1/B2)"),
                        ("finalize_kernel", "dequant split-K sum"),
                        ("decode_attention", "decode_attention (B3)"),
@@ -1041,7 +1172,7 @@ def phase_engine(params, cfg, max_new=32):
             f"{missing}")
     shared = _shared_prefix_requests(cfg, max_new)
     toks3, _, _, _ = _run_requests(eng, shared)
-    return counts, toks1, toks3
+    return counts, toks1, toks3, res["max_memory_allocated"]
 
 
 def phase_engine_paged(params, cfg, slab_toks, slab_shared, max_new=32):
@@ -1273,6 +1404,203 @@ def phase_engine_paged_kv(params, cfg, slab_shared, max_new=32):
     return total
 
 
+def _hf_config(cfg, n_layers=None):
+    """The HF config.json fields of a llama config: what a low-bit
+    directory's manifest records and ``load_low_bit`` reads back."""
+    return {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size,
+            "num_hidden_layers": n_layers or cfg.num_hidden_layers,
+            "num_attention_heads": cfg.num_attention_heads,
+            "num_key_value_heads": cfg.num_key_value_heads,
+            "max_position_embeddings": cfg.max_position_embeddings,
+            "rms_norm_eps": cfg.rms_norm_eps, "rope_theta": cfg.rope_theta,
+            "tie_word_embeddings": cfg.tie_word_embeddings}
+
+
+def _qtensors(tree, prefix=""):
+    from bigdl_tpu_torch.ops.quant import QTensor
+
+    if isinstance(tree, QTensor):
+        yield prefix, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _qtensors(v, f"{prefix}.{k}" if prefix else k)
+
+
+def phase_reference_prepack(params, cfg):
+    """The load entry point on the 2-layer cut: written with the port's
+    ``save_low_bit`` to a temporary directory, loaded with
+    ``AutoModelForCausalLM.load_low_bit(device="cuda")`` (prepack auto:
+    on, since the leaves land on the card). The report must convert every
+    sym_int4 QTensor, every loaded leaf must relay back to the saved bytes
+    (``from_mxu_layout``), the card forward must run the mxu and i4 bodies
+    and no std B1/B2 launch, and its logits must agree with the CPU's
+    plain versions of the same bodies within 5% of the logit range (the
+    reference phase's check). Full depth is not written to disk."""
+    import os
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.ops.quant import from_mxu_layout
+    from bigdl_tpu_torch.transformers import lowbit_io
+    from bigdl_tpu_torch.transformers.model import AutoModelForCausalLM
+
+    cut = _cut_params(params, 2)
+    d = tempfile.mkdtemp(prefix="bigdl_tpu_torch_lowbit_")
+    try:
+        t0 = time.perf_counter()
+        lowbit_io.save_low_bit(cut, d, config=_hf_config(cfg, 2),
+                               family="llama", qtype="sym_int4",
+                               extra={"max_seq": 2048})
+        save_s = time.perf_counter() - t0
+        dir_bytes = sum(os.path.getsize(os.path.join(d, f))
+                        for f in os.listdir(d))
+        t0 = time.perf_counter()
+        model = AutoModelForCausalLM.load_low_bit(d, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    saved = dict(_qtensors(cut))
+    loaded = dict(_qtensors(model.params))
+    n_sym4 = sum(q.qtype == "sym_int4" for q in loaded.values())
+    relaid = sorted(saved) == sorted(loaded) and all(
+        q.layout == ("int4" if q.qtype == "sym_int4" else "canonical")
+        and torch.equal(from_mxu_layout(q).data, saved[k].data)
+        and torch.equal(q.scale, saved[k].scale)
+        for k, q in loaded.items())
+    rep = model.prepack_report
+    res = phase_reference(None, cfg, cut=model.params, extra={
+        "phase": "reference_prepack", "prepack_report": rep,
+        "sym_int4_qtensors": n_sym4, "relaid_bytes_equal_saved": relaid,
+        "dir_bytes": dir_bytes, "save_s": save_s, "load_s": load_s,
+        "family": model.family.FAMILY, "qtype": model.qtype,
+        "max_seq": model.max_seq})
+    require(rep["applied"] and rep["converted"] == rep["qtensors"] == n_sym4
+            and n_sym4 > 0, f"reference_prepack: report {rep} does not "
+            f"convert all {n_sym4} sym_int4 QTensors")
+    require(relaid, "reference_prepack: a loaded leaf does not relay back "
+            "to the bytes save_low_bit wrote")
+    card = res["card_launches"]
+    require(card.get("dequant_gemv_mxu", 0) > 0
+            and card.get("dequant_gemm_i4", 0) > 0
+            and not card.get("dequant_gemv") and not card.get("dequant_gemm"),
+            f"reference_prepack: card launches {card}: mxu and i4 must "
+            "launch, std B1/B2 must not")
+
+
+def phase_engine_prepack(params, cfg, slab_toks, slab_peak, max_new=32):
+    """The load path's model at full width and depth: a pass of the engine
+    phase's eight requests under ``BIGDL_TPU_TORCH_MATMUL_GEMV=fold`` on the
+    canonical parameters, then ``TpuCausalLM(params)`` on the card (prepack
+    auto: every sym_int4 leaf of `params` is relaid in place, leaf by leaf)
+    served by ``LLMEngine(model)``: the eight requests twice and a profiled
+    decode window, then once under ``mxuflat`` and once under ``mxu8``.
+    Every request finishes, greedy and seeded streams repeat, the mxu and
+    i4 bodies launch and the std B1/B2 bodies do not, each flag's body
+    launches, and the engine's peak memory is within 1% of the canonical
+    engine phase's. How many greedy first tokens equal the canonical
+    engine's is reported, not gated (the mxu body's numerics differ)."""
+    import os
+
+    from bigdl_tpu_torch.models import llama
+    from bigdl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from bigdl_tpu_torch.serving.engine import EngineConfig, LLMEngine
+    from bigdl_tpu_torch.transformers.model import TpuCausalLM
+    from bigdl_tpu_torch.utils.testing import SyntheticCausalLM
+
+    lens, requests = _engine_requests(cfg, max_new)
+    ecfg = EngineConfig(max_batch=8, max_seq=2048)
+    total, flag_runs = {}, {}
+    env = "BIGDL_TPU_TORCH_MATMUL_GEMV"
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    def flag_pass(mode, model, body):
+        os.environ[env] = mode
+        try:
+            eng = LLMEngine(model, ecfg, device="cuda")
+            reset_launch_counts()
+            toks, reasons, _, perf = _run_requests(eng, requests)
+            counts = launch_counts()
+        finally:
+            del os.environ[env]
+        add(counts)
+        flag_runs[mode] = {"launches": {k: v for k, v in counts.items()
+                                        if v},
+                           "decode_step_ms": perf["decode_step_ms"],
+                           "finish_reasons": reasons}
+        require(all(reasons.get(r) in ("length", "stop")
+                    for r, _, _ in requests),
+                f"engine_prepack {mode}: not every request finished")
+        require(counts[body] > 0, f"engine_prepack {mode}: {body} never "
+                "launched")
+        del eng
+        gc.collect()
+
+    flag_pass("fold", SyntheticCausalLM(params, cfg), "dequant_gemv_fold")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = TpuCausalLM(params, cfg, llama, _hf_config(cfg), "sym_int4",
+                        max_seq=2048)
+    torch.cuda.synchronize()
+    load = {"prepack_s": time.perf_counter() - t0,
+            "report": model.prepack_report, "memory_before": before,
+            "peak_memory_during": torch.cuda.max_memory_allocated(),
+            "memory_after": torch.cuda.memory_allocated()}
+    require(model.prepack_report["converted"]
+            == model.prepack_report["qtensors"] > 0,
+            f"engine_prepack: report {model.prepack_report}")
+
+    eng = LLMEngine(model, ecfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    toks1, reasons1, ttft, perf = _run_requests(eng, requests)
+    counts = launch_counts()
+    toks2, reasons2, _, perf2 = _run_requests(eng, requests)
+    peak = torch.cuda.max_memory_allocated()      # as the engine phase's
+    add(counts)
+    prof = _profile_decode(eng, requests)
+    del eng
+    gc.collect()
+    greedy = [r for r, _, sp in requests if sp.temperature <= 0]
+    res = {"phase": "engine_prepack", "model": "llama2-7b",
+           "qtype": "sym_int4", "layout": "int4", "load": load,
+           "requests": len(requests), "prompt_lens": lens,
+           "max_new_tokens": max_new,
+           "launches": {k: v for k, v in counts.items() if v},
+           "finish_reasons": reasons1, "ttft_s": ttft,
+           "max_memory_allocated": peak,
+           "engine_phase_max_memory_allocated": slab_peak, **perf,
+           "repeat_run": perf2, "decode_profile": prof,
+           "greedy_first_tokens_equal_canonical": sum(
+               toks1[r][0] == slab_toks[r][0] for r in greedy),
+           "greedy_requests": len(greedy),
+           "tokens_equal_to_canonical": _prefix_agree(toks1, slab_toks),
+           "tokens": {r: toks1[r][:8] for r, _, _ in requests}}
+    flag_pass("mxuflat", model, "dequant_gemv_mxuflat")
+    flag_pass("mxu8", model, "dequant_gemv_mxu8")
+    res["flag_runs"] = flag_runs
+    emit(res)
+    _check_streams("engine_prepack", requests,
+                   ((toks1, reasons1), (toks2, reasons2)), cfg, max_new)
+    require(counts["dequant_gemv_mxu"] > 0 and counts["dequant_gemm_i4"] > 0,
+            f"engine_prepack: mxu/i4 launches {counts}")
+    require(counts["dequant_gemv"] == 0 and counts["dequant_gemm"] == 0,
+            f"engine_prepack: std B1/B2 launched on the prepacked model: "
+            f"{counts}")
+    require(abs(peak - slab_peak) <= 0.01 * slab_peak,
+            f"engine_prepack: peak memory {peak} not within 1% of the "
+            f"engine phase's {slab_peak}")
+    return total
+
+
 def phase_model_moe():
     from bigdl_tpu_torch.models.llama import merge_projections
     from bigdl_tpu_torch.utils.testing import (MIXTRAL_8X7B,
@@ -1464,6 +1792,13 @@ def summary(records, counts):
     rep = {
         "dequant_gemv": dict(M=8, linear="gate_up_proj"),
         "dequant_gemm": dict(M=128, linear="gate_up_proj"),
+        "dequant_gemv_mxu": dict(M=8, linear="gate_up_proj"),
+        "dequant_gemv_fold": dict(M=8, linear="gate_up_proj",
+                                  qtype="sym_int4"),
+        "dequant_gemv_mxuflat": dict(M=8, linear="gate_up_proj"),
+        "dequant_gemv_mxu8": dict(M=8, linear="gate_up_proj",
+                                  qtype="sym_int4"),
+        "dequant_gemm_i4": dict(M=128, linear="gate_up_proj"),
         "decode_attention": dict(Hkv=32, hd=128),
         "prefill_attention": dict(Sq=256, S=2048, Hkv=32),
         "paged_decode_attention": dict(B=8, Hkv=32, hd=128),
@@ -1487,7 +1822,8 @@ def summary(records, counts):
                     **{k: main[k] for k in ("matmul_only_ms", "b3_ms")
                        if k in main},
                     "case": {k: main[k] for k in main if k in (
-                        "kv", "M", "K", "N", "B", "H", "Hkv", "hd", "S", "Sq",
+                        "kv", "qtype", "layout", "M", "K", "N", "B", "H",
+                        "Hkv", "hd", "S", "Sq",
                         "ps", "NP", "pos", "E", "Np", "tokens", "routing",
                         "linear")}})
     emit({"kernels": out})
@@ -1514,7 +1850,7 @@ def main() -> int:
               "build_s": time.perf_counter() - t0,
               "memory_allocated": torch.cuda.memory_allocated()})
         phase_reference(params, cfg)
-        counts, slab_toks, slab_shared = phase_engine(params, cfg)
+        counts, slab_toks, slab_shared, slab_peak = phase_engine(params, cfg)
         # main-path launches: each path's run, counted from 0
         more = [phase_engine_paged(params, cfg, slab_toks, slab_shared),
                 phase_prefix_burst(params, cfg)]
@@ -1522,6 +1858,10 @@ def main() -> int:
             phase_reference(params, cfg, kind)
         kv_counts, kv_shared = phase_engine_kv(params, cfg, slab_toks)
         more += [kv_counts, phase_engine_paged_kv(params, cfg, kv_shared)]
+        # the load path: a low-bit directory of the 2-layer cut, then the
+        # full model prepacked in place (params hold the int4 layout after)
+        phase_reference_prepack(params, cfg)
+        more.append(phase_engine_prepack(params, cfg, slab_toks, slab_peak))
         del params
         gc.collect()
         torch.cuda.empty_cache()

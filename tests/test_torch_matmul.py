@@ -89,7 +89,7 @@ def test_dispatch_routes_by_rows(monkeypatch, m, route):
     seen = []
 
     def stand_in(name):
-        def fn(x, w):
+        def fn(x, w, body="std"):
             seen.append(name)
             return dm.plain_q_matmul(x, w)
         return fn
@@ -105,7 +105,7 @@ def test_dispatch_routes_by_rows(monkeypatch, m, route):
 def test_max_m_flag_moves_the_gemm_ceiling(monkeypatch):
     seen = []
     monkeypatch.setattr(tmatmul, "dequant_gemm",
-                        lambda x, w: seen.append("gemm") or
+                        lambda x, w, body="std": seen.append("gemm") or
                         dm.plain_q_matmul(x, w))
     monkeypatch.setenv("BIGDL_TPU_TORCH_MATMUL_MAX_M", "64")
     _, tw = _pair(64, 32, "sym_int4")
@@ -195,3 +195,237 @@ def test_split_k_fills_one_wave(monkeypatch, name, m, k, n, occ):
     assert split == 1 or blocks_n * split <= occ * sms
     # as few chunks per block as one wave allows
     assert per == -(-chunks // max(1, min(chunks, occ * sms // blocks_n)))
+
+
+# -- the int4-layout and scale-folded bodies -----------------------------------
+# (mxu, fold, mxuflat, mxu8 of B1 and i4 of B2; their plain versions against
+# the JAX package's Pallas bodies in interpret mode, switched as its own
+# tests switch them: set_flags(matmul_gemv=...) + jax.clear_caches())
+
+BF16_ULP = 2.0 ** -7     # tests/test_decode_fastpath.py's tolerance
+
+
+@pytest.fixture
+def jax_gemv_mode():
+    from bigdl_tpu.config import flags as jflags
+    from bigdl_tpu.config import set_flags
+
+    before = jflags().matmul_gemv
+
+    def use(mode):
+        set_flags(matmul_gemv=mode)
+        jax.clear_caches()           # flags are read at trace time
+    yield use
+    set_flags(matmul_gemv=before)
+    jax.clear_caches()
+
+
+def _pair_layout(k, n, qtype, layout, seed=0, lead=()):
+    from bigdl_tpu.ops.quant import to_mxu_layout as jax_to_mxu
+    from bigdl_tpu_torch.ops.quant import to_mxu_layout
+
+    jw, tw = _pair(k, n, qtype, seed)
+    if layout == "int4":
+        jw, tw = jax_to_mxu(jw), to_mxu_layout(tw)
+        assert tw.layout == "int4"
+    return jw, tw
+
+
+FUSED_CASES = [("sym_int4", "canonical"), ("sym_int4", "int4"),
+               ("asym_int4", "canonical"), ("nf4", "canonical"),
+               ("sym_int8", "canonical")]
+
+
+@pytest.mark.parametrize("qtype,layout", FUSED_CASES)
+@pytest.mark.parametrize("m", [1, 8, 32])
+def test_xla_fused_within_one_ulp_of_jax(qtype, layout, m):
+    from bigdl_tpu.ops.matmul import _q_matmul_xla_fused
+
+    k, n = 320, 192                           # 320: odd K for nf4's block
+    jw, tw = _pair_layout(k, n, qtype, layout, seed=20)
+    x = _x(m, k, seed=21)
+    want = np.asarray(_q_matmul_xla_fused(jnp.asarray(x), jw), np.float32)
+    got = tmatmul.q_matmul(torch.from_numpy(x), tw, backend="xla_fused")
+    np.testing.assert_allclose(got.numpy(), want, rtol=BF16_ULP,
+                               atol=BF16_ULP * np.abs(want).max())
+
+
+@pytest.mark.parametrize("layout", ["canonical", "int4"])
+def test_xla_fused_batch_dims_and_padding(layout):
+    from bigdl_tpu.ops.matmul import _q_matmul_xla_fused
+
+    k, n = 200, 96                            # K pads to 224
+    jw, tw = _pair_layout(k, n, "sym_int4", layout, seed=22)
+    x = _x(6, k, seed=23).reshape(2, 3, k)
+    want = np.asarray(_q_matmul_xla_fused(jnp.asarray(x), jw), np.float32)
+    got = tmatmul.q_matmul(torch.from_numpy(x), tw, backend="xla_fused")
+    assert got.shape == (2, 3, n)
+    np.testing.assert_allclose(got.numpy(), want, rtol=BF16_ULP,
+                               atol=BF16_ULP * np.abs(want).max())
+
+
+@pytest.mark.parametrize("qtype", ["fp4", "nf3"])
+def test_xla_fused_rejects_unfactorable_qtypes(qtype):
+    _, tw = _pair(64, 32, qtype)
+    with pytest.raises(NotImplementedError):
+        tmatmul.q_matmul(torch.zeros(1, 64), tw, backend="xla_fused")
+    with pytest.raises(ValueError, match="backend"):
+        tmatmul.q_matmul(torch.zeros(1, 64), tw, backend="pallas")
+
+
+# (flag, qtype, layout, the body both packages pick)
+GEMV_CASES = [("auto", "sym_int4", "int4", "mxu"),
+              ("mxu", "sym_int4", "int4", "mxu"),
+              ("fold", "sym_int4", "canonical", "fold"),
+              ("fold", "nf4", "canonical", "fold"),
+              ("fold", "sym_int8", "canonical", "fold"),
+              ("mxuflat", "sym_int4", "int4", "mxuflat"),
+              ("mxu8", "sym_int4", "int4", "mxu8"),
+              ("mxu8", "sym_int8", "canonical", "mxu8")]
+
+
+@pytest.mark.parametrize("mode,qtype,layout,body", GEMV_CASES)
+@pytest.mark.parametrize("m", [1, 8, 17, 32])
+def test_gemv_body_plain_versions_match_pallas_interpret(
+        jax_gemv_mode, mode, qtype, layout, body, m):
+    k, n = 512, 256
+    jw, tw = _pair_layout(k, n, qtype, layout, seed=24)
+    assert dm.pick_gemv_body(mode, tw) == body
+    x = _x(m, k, seed=25)
+    jax_gemv_mode(mode)
+    want = np.asarray(q_matmul_pallas(jnp.asarray(x), jw, interpret=True),
+                      np.float32)
+    got = dm.dequant_gemv(torch.from_numpy(x), tw, body)
+    tol = 6e-2 if body == "mxu8" else 3e-2
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("m", [64, 128])
+def test_gemm_i4_plain_version_matches_pallas_interpret(m):
+    k, n = 512, 256
+    jw, tw = _pair_layout(k, n, "sym_int4", "int4", seed=26)
+    x = _x(m, k, seed=27)
+    want = np.asarray(q_matmul_pallas(jnp.asarray(x), jw, interpret=True),
+                      np.float32)
+    got = dm.dequant_gemm(torch.from_numpy(x), tw, "i4")
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=3e-2,
+                               atol=3e-2)
+
+
+@pytest.mark.parametrize("m,k", [(1, 64), (8, 512), (17, 320), (32, 1024)])
+def test_mxu8_activation_codes_bit_identical_to_jax(m, k):
+    """The q8 activation codes and scales are the JAX expression of
+    ``_q_gemv_pallas`` (L532-537), bit for bit (a zero block included)."""
+    x = _x(m, k, seed=28)
+    x[0, :32] = 0.0
+    xb = jnp.asarray(x, jnp.bfloat16)
+    x3 = xb.reshape(m, k // 32, 32).transpose(1, 0, 2)
+    xf = x3.astype(jnp.float32)
+    amax = jnp.max(jnp.abs(xf), axis=-1)
+    sxt = amax * (1.0 / 127.0)
+    inv = jnp.where(sxt == 0, 0.0, 1.0 / jnp.where(sxt == 0, 1.0, sxt))
+    xq = jnp.round(xf * inv[..., None]).astype(jnp.int8)
+    got_q, got_s = dm.quantize_x_q8(torch.from_numpy(x).to(torch.bfloat16))
+    np.testing.assert_array_equal(
+        got_q.numpy(), np.asarray(xq).transpose(1, 0, 2).reshape(m, k))
+    np.testing.assert_array_equal(got_s.numpy().view(np.int32),
+                                  np.asarray(sxt).T.view(np.int32))
+
+
+@pytest.mark.parametrize("mode,layout,m,route", [
+    ("auto", "int4", 8, ("gemv", "mxu")),
+    ("auto", "canonical", 8, ("gemv", "std")),
+    ("fold", "int4", 8, ("gemv", "mxu")),
+    ("mxuflat", "canonical", 8, ("gemv", "std")),
+    ("mxu8", "int4", 32, ("gemv", "mxu8")),
+    ("off", "int4", 8, ("gemm", "i4")),
+    ("off", "canonical", 1, ("gemm", "std")),
+    ("auto", "int4", 33, ("gemm", "i4")),
+    ("mxu8", "int4", 128, ("gemm", "i4")),
+    ("auto", "int4", 129, ("plain", None))])
+def test_dispatch_picks_the_body(monkeypatch, mode, layout, m, route):
+    """M <= 32 -> B1 with the flag's body for the layout (``off``: B2),
+    32 < M <= 128 -> B2 (``i4`` on the int4 layout), larger -> the plain
+    dequantize-then-matmul path, which reads either layout."""
+    seen = []
+
+    def stand_in(name):
+        def fn(x, w, body=None):
+            seen.append((name, body))
+            return dm.plain_q_matmul(x, w)
+        return fn
+
+    monkeypatch.setenv("BIGDL_TPU_TORCH_MATMUL_GEMV", mode)
+    monkeypatch.setattr(tmatmul, "dequant_gemv", stand_in("gemv"))
+    monkeypatch.setattr(tmatmul, "dequant_gemm", stand_in("gemm"))
+    monkeypatch.setattr(tmatmul, "plain_q_matmul", stand_in("plain"))
+    _, tw = _pair_layout(64, 32, "sym_int4", layout)
+    tmatmul.q_matmul(torch.zeros(m, 64), tw)
+    assert seen == [route]
+
+
+def test_matmul_gemv_flag_rejects_unknown_values(monkeypatch):
+    monkeypatch.setenv("BIGDL_TPU_TORCH_MATMUL_GEMV", "turbo")
+    _, tw = _pair(64, 32, "sym_int4")
+    with pytest.raises(ValueError, match="MATMUL_GEMV"):
+        tmatmul.q_matmul(torch.zeros(1, 64), tw)
+
+
+@pytest.mark.parametrize("fn,body,qtype,layout", [
+    (dm.dequant_gemv, "mxu", "sym_int4", "int4"),
+    (dm.dequant_gemv, "fold", "nf4", "canonical"),
+    (dm.dequant_gemv, "mxuflat", "sym_int4", "int4"),
+    (dm.dequant_gemv, "mxu8", "sym_int8", "canonical"),
+    (dm.dequant_gemm, "i4", "sym_int4", "int4")])
+def test_new_bodies_never_take_the_plain_path_off_the_cpu(fn, body, qtype,
+                                                          layout):
+    _, tw = _pair_layout(64, 32, qtype, layout)
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(torch.zeros(4, 64, device="meta"), tw, body)
+
+
+@pytest.mark.parametrize("fn,body,qtype,layout", [
+    (dm.dequant_gemv, "mxu", "sym_int4", "canonical"),
+    (dm.dequant_gemv, "std", "sym_int4", "int4"),
+    (dm.dequant_gemv, "fold", "asym_int4", "canonical"),
+    (dm.dequant_gemv, "fold", "sym_int4", "int4"),
+    (dm.dequant_gemv, "mxuflat", "sym_int8", "canonical"),
+    (dm.dequant_gemv, "mxu8", "sym_int4", "canonical"),
+    (dm.dequant_gemm, "i4", "sym_int4", "canonical"),
+    (dm.dequant_gemm, "std", "sym_int4", "int4")])
+def test_a_body_refuses_a_weight_it_does_not_read(fn, body, qtype, layout):
+    """On any device: a body given a layout or qtype it does not read
+    raises (no other body runs in its place)."""
+    _, tw = _pair_layout(64, 32, qtype, layout)
+    for dev in ("cpu", "meta"):
+        with pytest.raises(ValueError, match="does not take"):
+            fn(torch.zeros(4, 64, device=dev), tw, body)
+
+
+@pytest.mark.parametrize("name,m,n,cw", [
+    ("dequant_gemv_mxu", 8, 22016, 2), ("dequant_gemv_mxu", 20, 22016, 1),
+    ("dequant_gemv_fold", 8, 260, 1), ("dequant_gemv_mxu8", 1, 4096, 2),
+    ("dequant_gemv_mxuflat", 8, 22016, 4), ("dequant_gemv_mxuflat", 8, 260,
+                                            1),
+    ("dequant_gemm_i4", 128, 22016, 1)])
+def test_variant_words_and_split(monkeypatch, name, m, n, cw):
+    """Words a thread loads per packed row for each body, and the K split
+    from the occupancy query of the body's own library."""
+    assert dm._cw(name, n, m) == cw
+    calls = []
+
+    def kernel(lib, sym=None):
+        def q(*a):
+            calls.append((lib, sym, a))
+            return 2
+        return q
+    monkeypatch.setattr(dm, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(dm, "_occupancy", {})
+    monkeypatch.setattr(dm._native, "kernel", kernel)
+    split, per = dm._split_k(name, m, n, 4096, dm._KIND_I4, cw,
+                             torch.device("cpu"))
+    assert (split - 1) * per < 64 <= split * per
+    lib, sym, args = calls[0]
+    assert lib == ("dequant_mxu8" if name.endswith("mxu8")
+                   else "dequant_variants")
+    assert sym.endswith("_blocks_per_sm") and args[-2:] == (dm._KIND_I4, cw)

@@ -132,12 +132,13 @@ def _port_sources():
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib") or top == "bigdl_tpu"
+    return top in ("jax", "jaxlib", "safetensors") or top == "bigdl_tpu"
 
 
 def test_port_never_imports_jax_or_the_jax_package():
-    """AST guard: no `import jax...` and no import of bigdl_tpu or
-    bigdl_tpu.* anywhere in the port or its chip smoke (bigdl_tpu_torch
+    """AST guard: no `import jax...`, no import of bigdl_tpu or
+    bigdl_tpu.* and none of safetensors (the card's machine has no such
+    package) anywhere in the port or its chip smoke (bigdl_tpu_torch
     itself is fine: the module name is matched exactly)."""
     bad = []
     files = list(_port_sources())
@@ -145,7 +146,10 @@ def test_port_never_imports_jax_or_the_jax_package():
     rel = {os.path.relpath(f, REPO) for f in files}
     assert {"bigdl_tpu_torch/ops/paged.py", "bigdl_tpu_torch/ops/random.py",
             "bigdl_tpu_torch/serving/pagepool.py",
-            "bigdl_tpu_torch/ops/cuda/paged_decode_attention.py"} <= rel
+            "bigdl_tpu_torch/ops/cuda/paged_decode_attention.py",
+            "bigdl_tpu_torch/transformers/lowbit_io.py",
+            "bigdl_tpu_torch/transformers/model.py",
+            "bigdl_tpu_torch/models/registry.py"} <= rel
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -159,3 +163,4 @@ def test_port_never_imports_jax_or_the_jax_package():
     assert not bad, bad
     assert not _forbidden("bigdl_tpu_torch.ops.quant")
     assert _forbidden("bigdl_tpu.ops") and _forbidden("jax.numpy")
+    assert _forbidden("safetensors.numpy")
