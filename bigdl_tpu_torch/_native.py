@@ -37,13 +37,13 @@ _c_int64 = ctypes.c_longlong
 # C entry points of each library: the launch (returns a cudaError_t) first
 SIGNATURES = {
     "dequant_gemv": {
-        "bigdl_dequant_gemv": [_c_void_p] * 7 + [_c_int] * 8 + [_c_void_p],
+        "bigdl_dequant_gemv": [_c_void_p] * 8 + [_c_int] * 8 + [_c_void_p],
         "bigdl_dequant_gemv_blocks_per_sm": [_c_int] * 3},
     "dequant_gemm": {
         "bigdl_dequant_gemm": [_c_void_p] * 7 + [_c_int] * 8 + [_c_void_p],
         "bigdl_dequant_gemm_blocks_per_sm": [_c_int] * 3},
     "dequant_variants": {
-        "bigdl_dequant_variant": [_c_int] + [_c_void_p] * 6 + [_c_int] * 8
+        "bigdl_dequant_variant": [_c_int] + [_c_void_p] * 7 + [_c_int] * 8
         + [_c_void_p],
         "bigdl_dequant_variant_blocks_per_sm": [_c_int] * 4},
     "dequant_mxu8": {
@@ -61,7 +61,10 @@ SIGNATURES = {
     "moe_dispatch": {
         "bigdl_ragged_expert_matmul": [_c_void_p] * 9 + [_c_int] * 6
         + [_c_int64] * 2 + [_c_int] * 2 + [_c_void_p],
-        "bigdl_moe_dispatch_blocks_per_sm": [_c_int] * 3},
+        "bigdl_moe_dispatch_blocks_per_sm": [_c_int] * 3,
+        "bigdl_ragged_expert_matmul_smallm": [_c_void_p] * 10 + [_c_int] * 6
+        + [_c_int64] * 2 + [_c_int] * 4 + [_c_void_p],
+        "bigdl_moe_dispatch_smallm_blocks_per_sm": [_c_int] * 3},
 }
 
 _lock = threading.Lock()

@@ -10,55 +10,56 @@
 // packed planes streaming from device memory set the floor (one Llama-2-7B
 // decode step reads ~3.7 GB of packed weights: ~1.1 ms at 3.35 TB/s).
 //
-// Design: the tensor-core dequant matmul of dequant_mma.cuh with one or two
-// m-tiles (M <= 16, M <= 32). The packed words go from device memory to
-// registers with no shared-memory round trip, one coalesced 4-byte load
-// per thread per packed row, and the next 64-K chunk's words are in flight
-// while the current one computes. Dequantization is 4 integer/bf16x2
-// instructions per weight pair for sym_int4, so the issue rate stays under
-// the memory time. Where the 128-column strips alone cannot fill the SMs,
-// the wrapper splits K across blocks; the split partials are summed in a
-// fixed order by a second pass (no atomics), so results repeat exactly.
-#include "dequant_mma.cuh"
+// Design: the small-M body of dequant_smallm.cuh (weights as the mma A
+// operand, x as B in n8 tiles of tokens, a 16-byte-load word ring per warp,
+// K split across blocks and summed in split order by the last block of each
+// column strip in the same launch) for every canonical kind: sym_int4,
+// asym_int4, the 4-bit codebooks and sym_int8.
+#include "dequant_smallm.cuh"
 
-// The variants: one or two m-tiles (M <= 16, M <= 32) by cw words per
-// thread per packed row: 4 (16-byte loads, 512 columns a block, two chunks
-// in the pipeline) where N % 16 == 0, else 1 (four chunks in the pipeline).
-#define BIGDL_GEMV_VARIANTS(F, MT) \
-    if (cw == 4) F(MT, 4, 2) else F(MT, 1, 4)
-
-// Returns the cudaError_t of the launches (0 on success). ws holds
-// split * M * N floats when split > 1 (else it may be null); y is bf16
-// [M, N]; K is cut into chunks of 64, chunks_per_split per block row.
+// Returns the cudaError_t of the launch (0 on success). ws holds
+// split * M * N floats and tickets at least ceil(N / (32 cw)) zeroed
+// counters when split > 1 (else both may be null); y is bf16 [M, N]; K is
+// cut into chunks of 64, chunks_per_split per block row; cw is the words a
+// thread loads per packed row (4 or 1 at M <= 16, 2 or 1 above).
 extern "C" int bigdl_dequant_gemv(const void* x, const void* data,
                                   const void* scale, const void* zero,
-                                  const void* lut, void* ws, void* y, int M,
-                                  int Kp, int N, int block, int kind,
-                                  int split, int chunks_per_split, int cw,
-                                  void* stream) {
-    if (M > 32 || (cw != 1 && cw != 4) ||
-        !dqmma::args_ok(M, Kp, N, block, kind, split, chunks_per_split, ws,
-                        cw)) {
+                                  const void* lut, void* ws, void* tickets,
+                                  void* y, int M, int Kp, int N, int block,
+                                  int kind, int split, int chunks_per_split,
+                                  int cw, void* stream) {
+    if (M > 32 || kind == KIND_I4 ||
+        !smallm::args_ok(M, Kp, N, block, kind, split, chunks_per_split, ws,
+                         tickets, cw)) {
         return (int)cudaErrorInvalidValue;
     }
     cudaStream_t st = (cudaStream_t)stream;
-#define BIGDL_GEMV_LAUNCH(MT, CW, ST)                                    \
-    {                                                                    \
-        return dqmma::launch<MT, CW, ST>(kind, x, data, scale, zero, lut, \
-                                         ws, y, M, Kp, N, block, split,  \
-                                         chunks_per_split, st);          \
+#define BIGDL_GEMV_LAUNCH(NT, CW, K)                                       \
+    return smallm::launch<NT, CW, K, false, false>(                        \
+        x, data, scale, zero, lut, ws, tickets, y, M, Kp, N, split,        \
+        chunks_per_split, 1, dqmma::RaggedArgs{}, st);
+#define BIGDL_GEMV_VARIANT(NT, CW)                                         \
+    {                                                                      \
+        BIGDL_SMALLM_KINDS(BIGDL_GEMV_LAUNCH, NT, CW)                      \
+        return (int)cudaErrorInvalidValue;                                 \
     }
-    if (M <= 16) BIGDL_GEMV_VARIANTS(BIGDL_GEMV_LAUNCH, 1);
-    BIGDL_GEMV_VARIANTS(BIGDL_GEMV_LAUNCH, 2);
+    BIGDL_SMALLM_VARIANTS(BIGDL_GEMV_VARIANT, M, cw,
+                          (int)cudaErrorInvalidValue)
+#undef BIGDL_GEMV_VARIANT
 #undef BIGDL_GEMV_LAUNCH
 }
 
 // Resident blocks per SM of the variant a launch with these M, kind and cw
 // takes (0 on error); the wrapper sizes its K split from it.
 extern "C" int bigdl_dequant_gemv_blocks_per_sm(int M, int kind, int cw) {
-#define BIGDL_GEMV_OCC(MT, CW, ST) \
-    { return dqmma::blocks_per_sm<MT, CW, ST>(kind); }
-    if (M <= 16) BIGDL_GEMV_VARIANTS(BIGDL_GEMV_OCC, 1);
-    BIGDL_GEMV_VARIANTS(BIGDL_GEMV_OCC, 2);
+#define BIGDL_GEMV_OCC(NT, CW, K) \
+    return smallm::blocks_per_sm<NT, CW, K, false, false>();
+#define BIGDL_GEMV_VARIANT(NT, CW)                  \
+    {                                               \
+        BIGDL_SMALLM_KINDS(BIGDL_GEMV_OCC, NT, CW)  \
+        return 0;                                   \
+    }
+    BIGDL_SMALLM_VARIANTS(BIGDL_GEMV_VARIANT, M, cw, 0)
+#undef BIGDL_GEMV_VARIANT
 #undef BIGDL_GEMV_OCC
 }

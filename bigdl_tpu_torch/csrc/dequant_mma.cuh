@@ -1,7 +1,11 @@
-// Tensor-core dequant matmul shared by B1 (dequant_gemv.cu, M <= 32), B2
-// (dequant_gemm.cu, 32 < M <= 128) and B6 (moe_dispatch.cu, one 128-row
-// token tile per expert): y[M, N] = x[M, Kp] . W[Kp, N] over
-// block-quantized W, with mma.sync m16n8k16 (bf16 in, f32 accumulate).
+// Tensor-core dequant matmul shared by B1's fold, mxuflat and mxu8 bodies
+// (dequant_variants.cu, dequant_mxu8.cu, M <= 32), B2 (dequant_gemm.cu,
+// 32 < M <= 128) and B6's 128-row token tiles (moe_dispatch.cu):
+// y[M, N] = x[M, Kp] . W[Kp, N] over block-quantized W, with mma.sync
+// m16n8k16 (bf16 in, f32 accumulate). Its word loads and dequantization
+// (Words, load_chunk, dequant_col) also feed the small-M body of B1's std
+// and mxu bodies and B6's decode tiles (dequant_smallm.cuh), which makes
+// the weights the A operand instead.
 //
 // The weights are never staged in shared memory. Each thread loads packed
 // 32-bit words straight from device memory (4 adjacent columns of one
@@ -41,8 +45,8 @@
 // feeds the tensor cores the raw codes (exact in bf16; a codebook value
 // rounded to bf16) and sums each 32- or 64-K quant block into a separate
 // f32 C fragment, which then FMAs into the running sum with its column's
-// f32 scale (`_gemv_kernel_fold` / `_gemv_kernel_mxu`): one scale a block
-// and C column, no per-weight multiply. A C fragment's columns are not the
+// f32 scale (`_gemv_kernel_fold`): one scale a block and C column, no
+// per-weight multiply. A C fragment's columns are not the
 // ones whose codes the lane loads, so FOLD loads the scales of its 8 * CW
 // C columns instead.
 //
@@ -93,6 +97,18 @@ __device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b,
                                                uint32_t c) {
     uint32_t d;
     asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+    return d;
+}
+
+// one three-input bitwise op, LUT over (a, b, c) = (0xF0, 0xCC, 0xAA):
+// 0xEA is (a & b) | c, 0x6A (a & b) ^ c. With two constant operands the
+// compiler splits such an expression into two LOP3s (an instruction holds
+// one immediate); here the constants sit in registers.
+template <int LUT>
+__device__ __forceinline__ uint32_t lop3(uint32_t a, uint32_t b, uint32_t c) {
+    uint32_t d;
+    asm("lop3.b32 %0, %1, %2, %3, %4;"
+        : "=r"(d) : "r"(a), "r"(b), "r"(c), "n"(LUT));
     return d;
 }
 
@@ -166,10 +182,10 @@ __device__ __forceinline__ int unit_row(int t, int i) {
     return 2 * t + (i & 1) + 8 * (i >> 1);
 }
 
-// The quant block of the kinds FOLD takes: 64 for the codebook formats
-// (nf4, fp4, nf3), 32 for sym_int4, sym_int8 and the int4 layout.
+// The quant block of each kind: 64 for the codebook formats (nf4, fp4,
+// nf3), 32 for sym_int4, asym_int4, sym_int8 and the int4 layout.
 template <int KIND>
-__host__ __device__ constexpr int fold_block() {
+__host__ __device__ constexpr int kind_block() {
     return KIND == KIND_CODEBOOK4 ? 64 : 32;
 }
 
@@ -274,11 +290,76 @@ __device__ __forceinline__ float bf16_hi(uint32_t w) {
     return __uint_as_float(w & 0xffff0000u);
 }
 
-// B fragments of one k step for the 4 * CW n-tiles: bf[4c + j] = {k slots
-// 2t and 2t+1, k slots 2t+8 and 2t+9} of byte j of word c (this thread's
-// column 4c + j). For split-block codes `hi` picks the high nibbles, for
-// the int4 layout the unit's second k step (rows t+8, t+12). FOLD leaves
-// the scale out.
+// B fragment of one k step for this thread's column 4c + j: {k slots 2t
+// and 2t+1, k slots 2t+8 and 2t+9} of byte j of word c. For split-block
+// codes `hi` picks the high nibbles, for the int4 layout the unit's second
+// k step (rows t+8, t+12). FOLD leaves the scale out. WT is any Words
+// (dequant_smallm.cuh folds with the scales of the thread's own columns).
+template <int KIND, int CW, bool FOLD, class WT>
+__device__ __forceinline__ void dequant_col(const WT& f, int u, bool hi,
+                                            const float* lut, int c, int j,
+                                            uint32_t* b) {
+    uint32_t sw = 0u;                 // FOLD reads no scale here
+    if constexpr (!FOLD) sw = f.s[u][2 * c + (j >> 1)];
+    if (KIND == KIND_I4) {
+        // byte j of the row and of the row >> 4: the codes of K rows 2i
+        // (low nibble) and 2i + 1 (high nibble) at bits 0-3 and 16-19; xor 8
+        // makes them the unsigned code c = s + 8, (0x4300 | c) the bf16
+        // 128 + c, and fma(v, 1, -136) the signed code exactly
+        const uint32_t s2 = __byte_perm(sw, 0u, (j & 1) ? 0x3232 : 0x1010);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const uint32_t w = f.w[u][2 * (hi ? 1 : 0) + r][c];
+            const uint32_t p = __byte_perm(w, w >> 4, j | ((4 + j) << 8));
+            const uint32_t v = lop3<0x6A>(p, 0x000f000fu, 0x43084308u);
+            const uint32_t d = fma_bf16x2(v, 0x3F803F80u, 0xC308C308u);
+            b[r] = FOLD ? d : fma_bf16x2(d, s2, 0x80008000u);
+        }
+    } else if (KIND == KIND_BF16) {
+        // column 4c + j is half (j & 1) of word 2c + (j >> 1) of a
+        // row: pair rows 2t and 2t+1 (and 2t+8, 2t+9) as they are
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            b[r] = __byte_perm(f.w[u][2 * r][2 * c + (j >> 1)],
+                               f.w[u][2 * r + 1][2 * c + (j >> 1)],
+                               (j & 1) ? 0x7632 : 0x5410);
+        }
+    } else if (KIND == KIND_SYM4) {
+        // (0x4300 | q) is the bf16 value 128 + q; fma(v, 1, -136)
+        // is q - 8 exactly, fma(q - 8, s, -0) rounds the exact
+        // product once
+        const uint32_t s2 = __byte_perm(sw, 0u, (j & 1) ? 0x3232 : 0x1010);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            uint32_t p = __byte_perm(f.w[u][2 * r][c], f.w[u][2 * r + 1][c],
+                                     j | ((4 + j) << 8));
+            if (hi) p >>= 4;
+            const uint32_t v = lop3<0xEA>(p, 0x000f000fu, 0x43004300u);
+            const uint32_t d = fma_bf16x2(v, 0x3F803F80u, 0xC308C308u);
+            b[r] = FOLD ? d : fma_bf16x2(d, s2, 0x80008000u);
+        }
+    } else {
+        // FOLD: the code (or table value) itself, rounded to bf16
+        const float sf = FOLD ? 1.f : (j & 1) ? bf16_hi(sw) : bf16_lo(sw);
+        float zf = 0.f;
+        if (KIND == KIND_ASYM4) {
+            const uint32_t zw = f.z[u][2 * c + (j >> 1)];
+            zf = (j & 1) ? bf16_hi(zw) : bf16_lo(zw);
+        }
+        const int shift = 8 * j + (hi ? 4 : 0);
+        const uint32_t mask = KIND == KIND_SYM8 ? 0xffu : 0xfu;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const uint32_t c0 = (f.w[u][2 * r][c] >> shift) & mask;
+            const uint32_t c1 = (f.w[u][2 * r + 1][c] >> shift) & mask;
+            b[r] = pack_bf16x2(dequant_f32<KIND>(c0, sf, zf, lut),
+                               dequant_f32<KIND>(c1, sf, zf, lut));
+        }
+    }
+}
+
+// B fragments of one k step for the 4 * CW n-tiles: bf[4c + j] is
+// dequant_col of this thread's column 4c + j.
 template <int KIND, int CW, bool FOLD = false>
 __device__ __forceinline__ void dequant_step(const Words<KIND, CW, FOLD>& f,
                                              int u, bool hi,
@@ -288,76 +369,7 @@ __device__ __forceinline__ void dequant_step(const Words<KIND, CW, FOLD>& f,
     for (int c = 0; c < CW; ++c) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-            uint32_t sw = 0u;                 // FOLD reads no scale here
-            if constexpr (!FOLD) sw = f.s[u][2 * c + (j >> 1)];
-            if (KIND == KIND_I4) {
-                // byte j of the row in both halves; its nibbles at bits 0-3
-                // and 16-19, xor 8 makes them the unsigned code c = s + 8
-                const uint32_t s2 = __byte_perm(sw, 0u,
-                                                (j & 1) ? 0x3232 : 0x1010);
-#pragma unroll
-                for (int r = 0; r < 2; ++r) {
-                    const uint32_t p = __byte_perm(
-                        f.w[u][2 * (hi ? 1 : 0) + r][c], 0u,
-                        0x4040u | j | (j << 8));
-                    const uint32_t q =
-                        ((p & 0x0000000fu) | ((p >> 4) & 0x000f0000u)) ^
-                        0x00080008u;
-                    // (0x4300 | c) is the bf16 128 + c; fma(v, 1, -136) is
-                    // the signed code exactly
-                    const uint32_t d = fma_bf16x2(q | 0x43004300u,
-                                                  0x3F803F80u, 0xC308C308u);
-                    bf[4 * c + j][r] =
-                        FOLD ? d : fma_bf16x2(d, s2, 0x80008000u);
-                }
-            } else if (KIND == KIND_BF16) {
-                // column 4c + j is half (j & 1) of word 2c + (j >> 1) of a
-                // row: pair rows 2t and 2t+1 (and 2t+8, 2t+9) as they are
-#pragma unroll
-                for (int r = 0; r < 2; ++r) {
-                    bf[4 * c + j][r] = __byte_perm(
-                        f.w[u][2 * r][2 * c + (j >> 1)],
-                        f.w[u][2 * r + 1][2 * c + (j >> 1)],
-                        (j & 1) ? 0x7632 : 0x5410);
-                }
-            } else if (KIND == KIND_SYM4) {
-                // (0x4300 | q) is the bf16 value 128 + q; fma(v, 1, -136)
-                // is q - 8 exactly, fma(q - 8, s, -0) rounds the exact
-                // product once
-                const uint32_t s2 = __byte_perm(sw, 0u,
-                                                (j & 1) ? 0x3232 : 0x1010);
-#pragma unroll
-                for (int r = 0; r < 2; ++r) {
-                    uint32_t p = __byte_perm(f.w[u][2 * r][c],
-                                             f.w[u][2 * r + 1][c],
-                                             j | ((4 + j) << 8));
-                    if (hi) p >>= 4;
-                    const uint32_t v = (p & 0x000f000fu) | 0x43004300u;
-                    const uint32_t d =
-                        fma_bf16x2(v, 0x3F803F80u, 0xC308C308u);
-                    bf[4 * c + j][r] =
-                        FOLD ? d : fma_bf16x2(d, s2, 0x80008000u);
-                }
-            } else {
-                // FOLD: the code (or table value) itself, rounded to bf16
-                const float sf = FOLD ? 1.f
-                                      : (j & 1) ? bf16_hi(sw) : bf16_lo(sw);
-                float zf = 0.f;
-                if (KIND == KIND_ASYM4) {
-                    const uint32_t zw = f.z[u][2 * c + (j >> 1)];
-                    zf = (j & 1) ? bf16_hi(zw) : bf16_lo(zw);
-                }
-                const int shift = 8 * j + (hi ? 4 : 0);
-                const uint32_t mask = KIND == KIND_SYM8 ? 0xffu : 0xfu;
-#pragma unroll
-                for (int r = 0; r < 2; ++r) {
-                    const uint32_t c0 = (f.w[u][2 * r][c] >> shift) & mask;
-                    const uint32_t c1 = (f.w[u][2 * r + 1][c] >> shift) & mask;
-                    bf[4 * c + j][r] =
-                        pack_bf16x2(dequant_f32<KIND>(c0, sf, zf, lut),
-                                    dequant_f32<KIND>(c1, sf, zf, lut));
-                }
-            }
+            dequant_col<KIND, CW, FOLD>(f, u, hi, lut, c, j, bf[4 * c + j]);
         }
     }
 }
@@ -574,7 +586,7 @@ dequant_mma_body(const uint16_t* __restrict__ x,       // [M, Kp] bf16
                 if constexpr (FOLD) {
                     // (compile-time block: the scale words stay in
                     // registers)
-                    constexpr int fb = fold_block<KIND>();
+                    constexpr int fb = kind_block<KIND>();
                     if ((uk * (u + 1)) % fb != 0) continue;
                     // the block is complete: acc += part * scale of the C
                     // column (2t + (e & 1)) * 4CW + j, then a fresh part
@@ -714,7 +726,7 @@ int launch(int kind, const void* x, const void* data, const void* scale,
 }
 
 // One launch of a single-kind variant (the int4-layout and scale-folded
-// bodies: mxu, fold, mxuflat, i4) and the split-order sum when split > 1.
+// bodies: fold, mxuflat, i4) and the split-order sum when split > 1.
 // Returns the cudaError_t of the launches.
 template <int MT, int CW, int STAGES, int KIND, bool FOLD>
 int launch_variant(const void* x, const void* data, const void* scale,

@@ -1,6 +1,5 @@
 // The dequant-matmul bodies that read a prepacked (int4-layout) weight or
-// fold the block scales out of the product, on the tensor-core template of
-// dequant_mma.cuh:
+// fold the block scales out of the product:
 //
 //   mxu      B1, int4 layout, scale-folded       _gemv_kernel_mxu (L234)
 //   fold     B1, canonical packing, scale-folded _gemv_kernel_fold (L172)
@@ -10,31 +9,32 @@
 // (bigdl_tpu/ops/pallas/dequant_matmul.py). mxu and fold compute
 // y = sum over blocks r of s[r, n] * (x . codes)[r]: the codes are exact in
 // bf16 (a codebook value is rounded to bf16 first), each block's product
-// sums in its own f32 C fragment and is then scaled once in f32 per C
-// column. mxuflat and i4 dequantize every weight to bf16 (code times scale,
-// rounded once) as the std bodies do, reading the int4 layout.
+// sums in f32 and is then scaled once in f32 per column. mxuflat and i4
+// dequantize every weight to bf16 (code times scale, rounded once) as the
+// std bodies do, reading the int4 layout.
 //
 // Bound on the H100: bytes for B1 (decode M moves 4.5 bits a weight for
-// 2 M flops), operations for i4 at M = 128 (see dequant_gemm.cu). The
-// int4 layout takes 2 integer ops a weight pair to unpack (a byte permute,
-// a mask-and-shift) where the split-block layout takes the same: on Hopper
-// it exists to give the prepacked load path a body, not to save ALU work
-// the card is short of. FOLD trades the per-weight scale multiply for a
-// per-block FMA, and needs a second set of f32 C fragments, so it runs at
-// 2 (M <= 16) or 1 words a thread per row to stay under 255 registers.
-#include "dequant_mma.cuh"
+// 2 M flops), operations for i4 at M = 128 (see dequant_gemm.cu).
+//
+// mxu, the load path's decode default, runs on the small-M body of
+// dequant_smallm.cuh: the weights are the mma A operand, so the C rows a
+// lane holds are the columns whose codes and scales it loaded, and FOLD
+// needs no second scale load and no second set of C fragments; 16-byte
+// loads at M <= 16, one launch with the K split summed by the last block.
+// fold, mxuflat and i4 (flag-selected, and B2's prefill body) run on the
+// tensor-core template of dequant_mma.cuh, where x is the A operand: FOLD
+// there keeps a second set of f32 C fragments and loads its C columns'
+// scales, so fold runs at 2 (M <= 16) or 1 words a thread per row to stay
+// under 255 registers, and a K split takes a second kernel.
+#include "dequant_smallm.cuh"
 
 enum Body : int { BODY_MXU = 0, BODY_FOLD = 1, BODY_MXUFLAT = 2, BODY_I4 = 3 };
 
-// Calls F(MT, CW, STAGES, KIND, FOLD) for the variant a launch takes, or
-// returns `err` for a combination that no variant takes.
+// Calls F(MT, CW, STAGES, KIND, FOLD) for the dequant_mma.cuh variant a
+// launch of fold, mxuflat or i4 takes, or returns `err` for a combination
+// that no variant takes.
 #define BIGDL_VARIANT(F, err)                                               \
     switch (body) {                                                         \
-        case BODY_MXU:                                                      \
-            if (M <= 16 && cw == 2) F(1, 2, 2, KIND_I4, true)               \
-            if (M <= 16 && cw == 1) F(1, 1, 4, KIND_I4, true)               \
-            if (M <= 32 && cw == 1) F(2, 1, 4, KIND_I4, true)               \
-            break;                                                          \
         case BODY_FOLD:                                                     \
             BIGDL_FOLD_KIND(F, KIND_SYM4)                                   \
             BIGDL_FOLD_KIND(F, KIND_CODEBOOK4)                              \
@@ -63,14 +63,15 @@ enum Body : int { BODY_MXU = 0, BODY_FOLD = 1, BODY_MXUFLAT = 2, BODY_I4 = 3 };
 // Returns the cudaError_t of the launches (0 on success). body picks the
 // variant (Body); kind is the weight kind of `fold` (KIND_SYM4,
 // KIND_CODEBOOK4 or KIND_SYM8; the others read KIND_I4). ws holds
-// split * M * N floats when split > 1; y is bf16 [M, N]; K is cut into
-// chunks of 64, chunks_per_split per block row; cw is the words a thread
-// loads per packed row.
+// split * M * N floats when split > 1; tickets (mxu) at least
+// ceil(N / (32 cw)) zeroed counters when split > 1; y is bf16 [M, N]; K is
+// cut into chunks of 64, chunks_per_split per block row; cw is the words a
+// thread loads per packed row.
 extern "C" int bigdl_dequant_variant(int body, const void* x,
                                      const void* data, const void* scale,
-                                     const void* lut, void* ws, void* y,
-                                     int M, int Kp, int N, int block,
-                                     int kind, int split,
+                                     const void* lut, void* ws,
+                                     void* tickets, void* y, int M, int Kp,
+                                     int N, int block, int kind, int split,
                                      int chunks_per_split, int cw,
                                      void* stream) {
     // the int4 layout is sym_int4 (block 32); fold's block is its kind's
@@ -82,6 +83,21 @@ extern "C" int bigdl_dequant_variant(int body, const void* x,
         return (int)cudaErrorInvalidValue;
     }
     cudaStream_t st = (cudaStream_t)stream;
+    if (body == BODY_MXU) {
+        if (M > 32 || !smallm::args_ok(M, Kp, N, block, kind, split,
+                                       chunks_per_split, ws, tickets, cw)) {
+            return (int)cudaErrorInvalidValue;
+        }
+#define BIGDL_MXU_LAUNCH(NT, CW)                                           \
+    {                                                                      \
+        return smallm::launch<NT, CW, KIND_I4, true, false>(               \
+            x, data, scale, nullptr, lut, ws, tickets, y, M, Kp, N,        \
+            split, chunks_per_split, 1, dqmma::RaggedArgs{}, st);          \
+    }
+        BIGDL_SMALLM_VARIANTS(BIGDL_MXU_LAUNCH, M, cw,
+                              (int)cudaErrorInvalidValue)
+#undef BIGDL_MXU_LAUNCH
+    }
 #define BIGDL_VARIANT_LAUNCH(MT, CW, ST, K, FOLD)                          \
     {                                                                      \
         return dqmma::launch_variant<MT, CW, ST, K, FOLD>(                 \
@@ -96,6 +112,12 @@ extern "C" int bigdl_dequant_variant(int body, const void* x,
 // takes (0 on error); the wrapper sizes its K split from it.
 extern "C" int bigdl_dequant_variant_blocks_per_sm(int body, int M, int kind,
                                                    int cw) {
+    if (body == BODY_MXU) {
+#define BIGDL_MXU_OCC(NT, CW) \
+    { return smallm::blocks_per_sm<NT, CW, KIND_I4, true, false>(); }
+        BIGDL_SMALLM_VARIANTS(BIGDL_MXU_OCC, M, cw, 0)
+#undef BIGDL_MXU_OCC
+    }
 #define BIGDL_VARIANT_OCC(MT, CW, ST, K, FOLD) \
     { return dqmma::variant_blocks_per_sm<MT, CW, ST, K, FOLD>(); }
     BIGDL_VARIANT(BIGDL_VARIANT_OCC, 0)

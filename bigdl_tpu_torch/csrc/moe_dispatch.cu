@@ -27,7 +27,16 @@
 // tensor-core work, and the trailing tiles past the last expert region
 // load nothing and write zeros. K may be split across blocks, summed in a
 // fixed order, as in B2.
-#include "dequant_mma.cuh"
+//
+// Decode tiles take a second entry, on the small-M body of
+// dequant_smallm.cuh: at an 8-slot decode step a tile holds at most 16
+// real rows (N * k token-choices), and the 8-m-tile body above, sized for
+// 128 rows with 4-byte loads, read 5x its bound there. The caller passes
+// the static bound on a tile's real rows (max_tile_rows, at most 32); the
+// small-M body stages and multiplies only a tile's real rows, in n8 tiles
+// of tokens against 16-byte-load weight tiles, and writes the tile's other
+// rows as zeros. The dense bf16 stack keeps the body above.
+#include "dequant_smallm.cuh"
 
 // Returns the cudaError_t of the launches (0 on success). x is bf16
 // [Np, Kp] with Np a multiple of 128; data/scale/zero are the expert-0
@@ -64,4 +73,59 @@ extern "C" int bigdl_ragged_expert_matmul(
 extern "C" int bigdl_moe_dispatch_blocks_per_sm(int M, int kind, int cw) {
     if (M != 128 || cw != 1) return 0;
     return dqmma::blocks_per_sm<8, 1, 2, true>(kind);
+}
+
+// B6 on the small-M body (quantized stacks; every tile holds at most
+// max_tile_rows <= 32 real rows). Arguments as bigdl_ragged_expert_matmul,
+// and: ws holds split * (Np / 128) * R * N floats, R = 8, 16 or 32 the
+// staged rows of the variant (max_tile_rows rounded up); tickets at least
+// (Np / 128) * ceil(N / (32 cw)) zeroed counters when split > 1; cw as
+// bigdl_dequant_gemv's at M = max_tile_rows.
+extern "C" int bigdl_ragged_expert_matmul_smallm(
+    const void* x, const void* data, const void* scale, const void* zero,
+    const void* lut, const void* tile_expert, const void* tile_rows,
+    void* ws, void* tickets, void* y, int Np, int Kp, int N, int block,
+    int kind, int num_experts, long long data_es, long long scale_es,
+    int split, int chunks_per_split, int max_tile_rows, int cw,
+    void* stream) {
+    if (Np < 128 || Np % 128 || num_experts < 1 || tile_expert == nullptr ||
+        tile_rows == nullptr || data_es < 0 || scale_es < 0 ||
+        kind == KIND_BF16 || kind == KIND_I4 ||
+        !smallm::args_ok(Np, Kp, N, block, kind, split, chunks_per_split, ws,
+                         tickets, cw)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const dqmma::RaggedArgs ra{(const int*)tile_expert,
+                               (const int*)tile_rows, data_es, scale_es,
+                               num_experts};
+    cudaStream_t st = (cudaStream_t)stream;
+#define BIGDL_RAGGED_LAUNCH(NT, CW, K)                                     \
+    return smallm::launch<NT, CW, K, false, true>(                         \
+        x, data, scale, zero, lut, ws, tickets, y, Np, Kp, N,              \
+        split, chunks_per_split, Np / 128, ra, st);
+#define BIGDL_RAGGED_VARIANT(NT, CW)                                       \
+    {                                                                      \
+        BIGDL_SMALLM_KINDS(BIGDL_RAGGED_LAUNCH, NT, CW)                    \
+        return (int)cudaErrorInvalidValue;                                 \
+    }
+    BIGDL_SMALLM_VARIANTS(BIGDL_RAGGED_VARIANT, max_tile_rows, cw,
+                          (int)cudaErrorInvalidValue)
+#undef BIGDL_RAGGED_VARIANT
+#undef BIGDL_RAGGED_LAUNCH
+}
+
+// Resident blocks per SM of the small-M entry's variant for max_tile_rows,
+// kind and cw (0 on error).
+extern "C" int bigdl_moe_dispatch_smallm_blocks_per_sm(int max_tile_rows,
+                                                       int kind, int cw) {
+#define BIGDL_RAGGED_OCC(NT, CW, K) \
+    return smallm::blocks_per_sm<NT, CW, K, false, true>();
+#define BIGDL_RAGGED_VARIANT(NT, CW)                  \
+    {                                                 \
+        BIGDL_SMALLM_KINDS(BIGDL_RAGGED_OCC, NT, CW)  \
+        return 0;                                     \
+    }
+    BIGDL_SMALLM_VARIANTS(BIGDL_RAGGED_VARIANT, max_tile_rows, cw, 0)
+#undef BIGDL_RAGGED_VARIANT
+#undef BIGDL_RAGGED_OCC
 }

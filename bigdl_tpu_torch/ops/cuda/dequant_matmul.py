@@ -4,20 +4,28 @@ version.
 
 Counterpart of ``bigdl_tpu/ops/pallas/dequant_matmul.py``
 (``_q_gemv_pallas`` and ``_q_matmul_generic``). Each Pallas body is a
-CUDA body on the tensor-core dequant matmul of ``csrc/dequant_mma.cuh``,
+CUDA body on the tensor-core dequant matmul of ``csrc/dequant_mma.cuh``
+or, marked (*), on the small-M body of ``csrc/dequant_smallm.cuh``,
 counting its launches under its own name:
 
 ========================  ==========================  ===================
 launch counter            Pallas body                 source
 ========================  ==========================  ===================
-``dequant_gemv``          B1 ``_gemv_kernel``         dequant_gemv.cu
+``dequant_gemv``          B1 ``_gemv_kernel``         dequant_gemv.cu (*)
 ``dequant_gemv_mxu``      B1 ``_gemv_kernel_mxu``     dequant_variants.cu
+                                                      (*)
 ``dequant_gemv_fold``     B1 ``_gemv_kernel_fold``    dequant_variants.cu
 ``dequant_gemv_mxuflat``  B1 ``_gemv_kernel_mxuflat`` dequant_variants.cu
 ``dequant_gemv_mxu8``     B1 ``_gemv_kernel_mxu8``    dequant_mxu8.cu
 ``dequant_gemm``          B2 ``_kernel_4bit/_int8``   dequant_gemm.cu
 ``dequant_gemm_i4``       B2 ``_kernel_i4``           dequant_variants.cu
 ========================  ==========================  ===================
+
+(*) The small-M body makes the weights the mma A operand and x the B
+operand in n8 tiles of tokens; a block is 4 warps on one strip of 32 * cw
+columns, and a K split is summed in split order by the strip's last block
+in the same launch (a ticket a strip, from a buffer that lives for the
+process). One launch a call, no host sync.
 
 The std bodies (``dequant_gemv``, ``dequant_gemm``), ``mxuflat`` and
 ``i4`` dequantize every weight in f32 (code times block scale, plus block
@@ -74,9 +82,17 @@ _GEMM = {"std": "dequant_gemm", "i4": "dequant_gemm_i4"}
 _VARIANT_BODY = {"dequant_gemv_mxu": 0, "dequant_gemv_fold": 1,
                  "dequant_gemv_mxuflat": 2, "dequant_gemm_i4": 3}
 
+# geometry names on the small-M body (dequant_smallm.cuh): B1's std and
+# mxu bodies and B6's small-M entry (ops/cuda/moe_dispatch.py)
+_SMALLM = frozenset({"dequant_gemv", "dequant_gemv_mxu",
+                     "moe_dispatch_smallm"})
+# the tickets a device's buffer holds at first (grown on demand)
+_TICKETS_MIN = 4096
+
 _luts: Dict[Tuple[str, int], torch.Tensor] = {}
 _sms: Dict[int, int] = {}
 _occupancy: Dict[tuple, int] = {}
+_tickets: Dict[Tuple[str, int], torch.Tensor] = {}
 
 
 def plain_q_matmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
@@ -288,16 +304,34 @@ def _prepare(x: torch.Tensor, w: QTensor, name: str) -> torch.Tensor:
 
 
 def _cw(name: str, n: int, m: int = 1) -> int:
-    """32-bit words (4 columns each) a thread loads per packed row: 4
-    (16-byte loads) for B1's per-weight-scale bodies where the row allows
-    them; 2 for the scale-folded and mxu8 bodies at one m-tile (their
-    second set of C fragments leaves no registers for more); else 1."""
-    if name in ("dequant_gemv", "dequant_gemv_mxuflat"):
+    """32-bit words (4 columns each) a thread loads per packed row. The
+    small-M body: 4 (16-byte loads) at M <= 16 and 2 above (its f32 sums
+    grow with the n8 tiles of tokens) where the row allows them, else 1.
+    mxuflat: 4 where N % 16 == 0. fold and mxu8 (dequant_mma.cuh): 2 at
+    one m-tile (their second set of C fragments leaves no registers for
+    more). Else 1."""
+    if name in _SMALLM:
+        if m <= 16:
+            return 4 if n % 16 == 0 else 1
+        return 2 if n % 8 == 0 else 1
+    if name == "dequant_gemv_mxuflat":
         return 4 if n % 16 == 0 else 1
-    if name in ("dequant_gemv_mxu", "dequant_gemv_fold",
-                "dequant_gemv_mxu8"):
+    if name in ("dequant_gemv_fold", "dequant_gemv_mxu8"):
         return 2 if m <= 16 and n % 8 == 0 else 1
     return 1
+
+
+def _block_cols(name: str, cw: int) -> int:
+    """Output columns one block computes: a strip of 32 * cw on the
+    small-M body (its 4 warps split the strip's K), 4 warps of 32 * cw
+    each on dequant_mma.cuh."""
+    return (32 if name in _SMALLM else _WARPS * 32) * cw
+
+
+def smallm_rows(m: int) -> int:
+    """Token rows the small-M body stages for M rows: 1, 2 or 4 n8 tiles
+    (its variants, dequant_smallm.cuh)."""
+    return 8 if m <= 8 else 16 if m <= 16 else 32
 
 
 def _occupancy_query(name: str):
@@ -308,6 +342,9 @@ def _occupancy_query(name: str):
                            "bigdl_dequant_variant_blocks_per_sm")
         body = _VARIANT_BODY[name]
         return lambda m, kind, cw: q(body, m, kind, cw)
+    if name == "moe_dispatch_smallm":
+        return _native.kernel("moe_dispatch",
+                              "bigdl_moe_dispatch_smallm_blocks_per_sm")
     lib = "dequant_mxu8" if name == "dequant_gemv_mxu8" else name
     return _native.kernel(lib, f"bigdl_{lib}_blocks_per_sm")
 
@@ -317,8 +354,12 @@ def _split_k(name: str, m: int, n: int, kp: int, kind: int, cw: int,
     """(split, chunks per split): cut K (in 64-row chunks) into as many
     splits as keep every block of the launch (``tiles`` row tiles of
     column strips) resident at once (one wave), with no empty split."""
-    gemv = name.startswith("dequant_gemv")
-    tier = (m <= 16) if gemv else (m <= 64)                    # m-tiles
+    if name in _SMALLM:
+        tier = smallm_rows(m)                                  # n8 tiles
+    elif name.startswith("dequant_gemv"):
+        tier = m <= 16                                         # m-tiles
+    else:
+        tier = m <= 64
     key = (name, tier, kind, cw, device.index)
     occ = _occupancy.get(key)
     if occ is None:
@@ -327,10 +368,45 @@ def _split_k(name: str, m: int, n: int, kp: int, kind: int, cw: int,
             raise RuntimeError(f"{name}: occupancy query failed")
         _occupancy[key] = occ
     chunks = -(-kp // _CHUNK)
-    blocks = tiles * -(-n // (_WARPS * 32 * cw))
-    split = max(1, min(chunks, occ * _sm_count(device) // blocks))
+    blocks = tiles * -(-n // _block_cols(name, cw))
+    slots = occ * _sm_count(device)
+    if name in _SMALLM:
+        split = _balanced_split(blocks, slots, chunks)
+    else:
+        split = max(1, min(chunks, slots // blocks))
     per = -(-chunks // split)
     return -(-chunks // per), per
+
+
+def _balanced_split(blocks: int, slots: int, chunks: int) -> int:
+    """The K split that minimizes the waves of `slots` resident blocks a
+    launch takes for each split (its time, where each block's work shrinks
+    with the split), the fewest splits within 5% of the least; at most 16
+    splits and 8 chunks (two a warp) a split. The small-M body sums a
+    split in the same launch, so a split costs little, while a short last
+    wave leaves SMs idle (tools/bench_smallm.py times the splits)."""
+    top = max(1, min(16, chunks // 8))
+    cost = {s: -(-blocks * s // slots) / s for s in range(1, top + 1)}
+    least = min(cost.values())
+    return min(s for s, c in cost.items() if c <= 1.05 * least)
+
+
+def ticket_buffer(device: torch.device, count: int) -> torch.Tensor:
+    """int32 zeros, at least `count` of them, on `device`: the small-M
+    body's split-K tickets, one a column strip (and token tile). Allocated
+    once a device and grown on demand; every launch leaves its tickets at
+    zero. The buffer serves launches on one stream at a time."""
+    key = (device.type, device.index)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < count:
+        buf = torch.zeros(max(count, _TICKETS_MIN), dtype=torch.int32,
+                          device=device)
+        _tickets[key] = buf
+    return buf
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _launch(name: str, x: torch.Tensor, w: QTensor) -> torch.Tensor:
@@ -342,8 +418,13 @@ def _launch(name: str, x: torch.Tensor, w: QTensor) -> torch.Tensor:
     split, per = _split_k(name, m, n, kp, kind, cw, x2.device)
     ws = (torch.empty((split, m, n), dtype=torch.float32, device=x2.device)
           if split > 1 else None)
+    # the small-M body sums a K split in the same launch, one ticket a strip
+    tickets = None
+    if name in _SMALLM and split > 1:
+        tickets = ticket_buffer(
+            x2.device, -(-n // _block_cols(name, cw))).data_ptr()
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
-    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    stream = _stream(x2.device)
     wsp = None if ws is None else ws.data_ptr()
     if name == "dequant_gemv_mxu8":
         xq, sx = quantize_x_q8(x2)
@@ -354,14 +435,18 @@ def _launch(name: str, x: torch.Tensor, w: QTensor) -> torch.Tensor:
     elif name in _VARIANT_BODY:
         err = _native.kernel("dequant_variants")(
             _VARIANT_BODY[name], x2.data_ptr(), w.data.data_ptr(),
-            w.scale.data_ptr(), _lut_ptr(w, x2.device), wsp, y.data_ptr(),
-            m, kp, n, w.qt.block_size, kind, split, per, cw, stream)
+            w.scale.data_ptr(), _lut_ptr(w, x2.device), wsp, tickets,
+            y.data_ptr(), m, kp, n, w.qt.block_size, kind, split, per, cw,
+            stream)
     else:
+        planes = (x2.data_ptr(), w.data.data_ptr(), w.scale.data_ptr(),
+                  None if w.zero is None else w.zero.data_ptr(),
+                  _lut_ptr(w, x2.device), wsp)
+        if name in _SMALLM:
+            planes += (tickets,)
         err = _native.kernel(name)(
-            x2.data_ptr(), w.data.data_ptr(), w.scale.data_ptr(),
-            None if w.zero is None else w.zero.data_ptr(),
-            _lut_ptr(w, x2.device), wsp, y.data_ptr(), m, kp, n,
-            w.qt.block_size, kind, split, per, cw, stream)
+            *planes, y.data_ptr(), m, kp, n, w.qt.block_size, kind, split,
+            per, cw, stream)
     _native.check(name, err)
     LAUNCHES[name] += 1
     return y

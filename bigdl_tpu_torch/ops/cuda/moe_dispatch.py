@@ -4,6 +4,12 @@ Counterpart of ``bigdl_tpu/ops/pallas/moe_dispatch.py::ragged_expert_matmul``
 (its quantized and dense bf16 bodies). Source: ``csrc/moe_dispatch.cu``,
 B2's tensor-core dequant body (``csrc/dequant_mma.cuh``) with a per-tile
 weight address; a dense stack takes the same body with bf16 weights.
+Decode tiles take a second entry on B1's small-M body
+(``csrc/dequant_smallm.cuh``): the caller passes ``max_tile_rows``, a
+bound on the real rows of any tile known on the host without reading the
+device (``moe_mlp_ragged``: the token-choice count ``N * k``, at most a
+tile); at most ``SMALLM_MAX_ROWS`` it takes the small-M entry over a
+quantized stack, else the 8-m-tile body.
 
 x [Np, K] is a token buffer sorted by expert and padded so that every
 ``TOKEN_TILE``-row tile holds the rows of one expert; tile i is multiplied
@@ -27,14 +33,21 @@ import torch
 
 from bigdl_tpu_torch import _native
 from bigdl_tpu_torch.ops.cuda import LAUNCHES
-from bigdl_tpu_torch.ops.cuda.dequant_matmul import (_kind, _lut_ptr,
-                                                     _prepare, _split_k)
+from bigdl_tpu_torch.ops.cuda.dequant_matmul import (_block_cols, _cw,
+                                                     _kind, _lut_ptr,
+                                                     _prepare, _split_k,
+                                                     _stream, smallm_rows,
+                                                     ticket_buffer)
 from bigdl_tpu_torch.ops.quant import QTensor, dequantize
 
 # rows of one token tile: one expert per tile (the JAX package's TOKEN_TILE,
 # and the 8 m-tiles of B6's blocks; the K split sizes its occupancy as B2's
 # 8-m-tile variant)
 TOKEN_TILE = 128
+
+# the most real rows a tile may hold for the small-M entry (its variants
+# stage 8, 16 or 32 token rows)
+SMALLM_MAX_ROWS = 32
 
 # weight kind of a dense bf16 stack (KIND_BF16 in csrc/dequant_mma.cuh)
 _KIND_BF16 = 4
@@ -73,6 +86,12 @@ def _check_tile_vector(v: torch.Tensor, name: str, tiles: int,
                          f"{v.dtype} {tuple(v.shape)} on {v.device}")
 
 
+def _require_cuda(x: torch.Tensor, name: str) -> None:
+    if not x.is_cuda:
+        raise ValueError(f"{name}: x must be a CUDA or CPU tensor, got "
+                         f"{x.device}")
+
+
 def _prepare_dense(x: torch.Tensor, w: torch.Tensor,
                    name: str) -> torch.Tensor:
     """Validate a dense bf16 [E, K, N] stack and return x as contiguous
@@ -98,15 +117,31 @@ def _prepare_dense(x: torch.Tensor, w: torch.Tensor,
     return x
 
 
+def ragged_entry(w: Union[QTensor, torch.Tensor],
+                 max_tile_rows: Optional[int]) -> str:
+    """The entry a launch takes, from the caller's bound on a tile's real
+    rows alone: ``smallm`` (B1's small-M body) for a quantized stack with
+    ``max_tile_rows <= SMALLM_MAX_ROWS``, else ``tiles`` (the 8-m-tile
+    body). No bound (None) keeps the 8-m-tile body."""
+    if max_tile_rows is None:
+        return "tiles"
+    if max_tile_rows < 1:
+        raise ValueError(f"ragged_expert_matmul: max_tile_rows must be at "
+                         f"least 1, got {max_tile_rows}")
+    if isinstance(w, QTensor) and max_tile_rows <= SMALLM_MAX_ROWS:
+        return "smallm"
+    return "tiles"
+
+
 def _launch(x: torch.Tensor, w: Union[QTensor, torch.Tensor],
             tile_expert: torch.Tensor, tile_rows: torch.Tensor,
-            split: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+            split: Optional[Tuple[int, int]] = None,
+            max_tile_rows: Optional[int] = None) -> torch.Tensor:
     """Validate and launch B6. ``split`` forces (splits, chunks per split),
-    e.g. B2's for a bit-for-bit comparison."""
+    e.g. B2's for a bit-for-bit comparison; ``max_tile_rows`` picks the
+    entry (``ragged_entry``): every tile's real rows must be at most it."""
     name = "ragged_expert_matmul"
-    if not x.is_cuda:
-        raise ValueError(f"{name}: x must be a CUDA or CPU tensor, got "
-                         f"{x.device}")
+    _require_cuda(x, name)
     np_ = x.shape[0] if x.dim() == 2 else -1
     if np_ < TOKEN_TILE or np_ % TOKEN_TILE:
         raise ValueError(f"{name}: x must be [Np, K] with Np a multiple of "
@@ -137,28 +172,58 @@ def _launch(x: torch.Tensor, w: Union[QTensor, torch.Tensor],
     _check_tile_vector(tile_expert, "tile_expert", ntiles, x2.device)
     _check_tile_vector(tile_rows, "tile_rows", ntiles, x2.device)
     kp = x2.shape[1]
-    split, per = split or _split_k("moe_dispatch", TOKEN_TILE, n, kp, kind,
-                                   1, x2.device, tiles=ntiles)
-    ws = (torch.empty((split, np_, n), dtype=torch.float32, device=x2.device)
-          if split > 1 else None)
+    stream = _stream(x2.device)
     y = torch.empty((np_, n), dtype=torch.bfloat16, device=x2.device)
-    err = _native.kernel("moe_dispatch")(
-        x2.data_ptr(), data.data_ptr(), scale.data_ptr(), zero, lut,
-        tile_expert.data_ptr(), tile_rows.data_ptr(),
-        None if ws is None else ws.data_ptr(), y.data_ptr(),
-        np_, kp, n, block, kind, num_experts, data_es, scale_es,
-        split, per, torch.cuda.current_stream(x2.device).cuda_stream)
+    if ragged_entry(w, max_tile_rows) == "smallm":
+        geo = "moe_dispatch_smallm"
+        cw = _cw(geo, n, max_tile_rows)
+        split, per = split or _split_k(geo, max_tile_rows, n, kp, kind, cw,
+                                       x2.device, tiles=ntiles)
+        align = min(16, 4 * cw)          # the weight words' vector loads
+        if (data.data_ptr() % align or data_es % align
+                or scale.data_ptr() % (2 * align) or scale_es % align
+                or (zero is not None and zero % (2 * align))):
+            raise ValueError(f"{name}: the expert planes are not aligned "
+                             "for vector loads")
+        rows = smallm_rows(max_tile_rows)
+        ws = tickets = None
+        if split > 1:
+            ws = torch.empty((split, ntiles * rows, n), dtype=torch.float32,
+                             device=x2.device)
+            tickets = ticket_buffer(
+                x2.device, ntiles * -(-n // _block_cols(geo, cw))).data_ptr()
+        err = _native.kernel("moe_dispatch",
+                             "bigdl_ragged_expert_matmul_smallm")(
+            x2.data_ptr(), data.data_ptr(), scale.data_ptr(), zero, lut,
+            tile_expert.data_ptr(), tile_rows.data_ptr(),
+            None if ws is None else ws.data_ptr(), tickets, y.data_ptr(),
+            np_, kp, n, block, kind, num_experts, data_es, scale_es, split,
+            per, max_tile_rows, cw, stream)
+    else:
+        split, per = split or _split_k("moe_dispatch", TOKEN_TILE, n, kp,
+                                       kind, 1, x2.device, tiles=ntiles)
+        ws = (torch.empty((split, np_, n), dtype=torch.float32,
+                          device=x2.device) if split > 1 else None)
+        err = _native.kernel("moe_dispatch")(
+            x2.data_ptr(), data.data_ptr(), scale.data_ptr(), zero, lut,
+            tile_expert.data_ptr(), tile_rows.data_ptr(),
+            None if ws is None else ws.data_ptr(), y.data_ptr(),
+            np_, kp, n, block, kind, num_experts, data_es, scale_es,
+            split, per, stream)
     _native.check(name, err)
     LAUNCHES[name] += 1
     return y
 
 
 def ragged_expert_matmul(x: torch.Tensor, w: Union[QTensor, torch.Tensor],
-                         tile_expert: torch.Tensor, tile_rows: torch.Tensor
+                         tile_expert: torch.Tensor, tile_rows: torch.Tensor,
+                         max_tile_rows: Optional[int] = None
                          ) -> torch.Tensor:
     """B6: x [Np, K] tile i @ W[tile_expert[i]] -> bf16 [Np, N] for an
     [E, K, N] expert stack, quantized or dense bf16 (Np % TOKEN_TILE == 0).
-    CPU tensors take the plain version; CUDA tensors launch B6 or raise."""
+    ``max_tile_rows``, a bound on every tile's real rows known on the host,
+    picks the entry (``ragged_entry``). CPU tensors take the plain version;
+    CUDA tensors launch B6 or raise."""
     if x.device.type == "cpu":
         return plain_ragged_expert_matmul(x, w, tile_expert)
-    return _launch(x, w, tile_expert, tile_rows)
+    return _launch(x, w, tile_expert, tile_rows, max_tile_rows=max_tile_rows)

@@ -11,7 +11,9 @@ is done, with no host sync and no data-dependent shape:
    tiles past the last expert region name expert E - 1 and hold no row.
 2. ``ragged_expert_matmul`` (kernel B6, ``ops/cuda/moe_dispatch.py``)
    multiplies tile i by expert ``tile_expert[i]``'s weight; ``tile_rows``
-   lets it skip the m-tiles that hold no real row.
+   lets it skip the m-tiles that hold no real row, and the static
+   ``max_tile_rows = min(N*k, TOKEN_TILE)`` (no tile holds more real rows
+   than there are token-choices) sends decode steps to its small-M entry.
 3. Each pair's output row is weighted and the k rows of a token are
    summed in a fixed order (choice 0 first), through the inverse of the
    sort, instead of a scatter-add: for k = 2 this is the JAX package's
@@ -90,9 +92,11 @@ def moe_mlp_ragged(xf: torch.Tensor, topi: torch.Tensor, topw: torch.Tensor,
     xbuf = xf.new_zeros((r.np_, d))
     xbuf.index_copy_(0, r.dest, xf.index_select(0, flat_tok[r.order]))
 
+    max_tile_rows = min(n * k, TOKEN_TILE)
+
     def mm(a, w):
-        return ragged_expert_matmul(a, w, r.tile_expert, r.tile_rows).to(
-            xf.dtype)
+        return ragged_expert_matmul(a, w, r.tile_expert, r.tile_rows,
+                                    max_tile_rows=max_tile_rows).to(xf.dtype)
 
     h = act(mm(xbuf, gate_w)) * mm(xbuf, up_w)
     y = mm(h, down_w)                                   # [Np, D]

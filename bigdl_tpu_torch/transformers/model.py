@@ -93,16 +93,34 @@ class AutoModelForCausalLM:
     @classmethod
     def from_pretrained(cls, pretrained_model_name_or_path: str, *,
                         max_seq: Optional[int] = None,
+                        quantize_kv_cache: Optional[bool] = None,
                         kv_cache_dtype: Optional[str] = None,
+                        speculative: bool = False,
+                        imatrix: Optional[Any] = None,
                         merge_projections: bool = True, device="cuda",
                         **_ignored) -> TpuCausalLM:
         """A low-bit directory through `load_low_bit`. HF-style keyword
         arguments (``load_in_4bit``, ``optimize_model``, ...) are accepted
         and ignored there, as the JAX package's facade does: the
-        directory's qtype is what it holds."""
+        directory's qtype is what it holds. ``kv_cache_dtype`` wins over
+        the deprecated ``quantize_kv_cache`` (True is ``fp8_e5m2``); with
+        neither, the flag default decides. A low-bit directory refuses
+        ``speculative`` and ``imatrix``: both need the original
+        checkpoint."""
         path = pretrained_model_name_or_path
         if lowbit_io.is_low_bit_dir(path):
+            if speculative:
+                raise ValueError(
+                    "speculative=True needs an original checkpoint to build "
+                    "the low-bit draft; this path is an already-quantized "
+                    "save_low_bit directory")
+            if imatrix is not None:
+                raise ValueError(
+                    "imatrix applies at quantization time; this path is an "
+                    "already-quantized save_low_bit directory: re-convert "
+                    "from the original checkpoint with the imatrix")
             return cls.load_low_bit(path, max_seq=max_seq,
+                                    quantize_kv_cache=quantize_kv_cache,
                                     kv_cache_dtype=kv_cache_dtype,
                                     merge_projections=merge_projections,
                                     device=device)
@@ -112,9 +130,15 @@ class AutoModelForCausalLM:
 
     @classmethod
     def load_low_bit(cls, path: str, max_seq: Optional[int] = None,
+                     quantize_kv_cache: Optional[bool] = None,
                      kv_cache_dtype: Optional[str] = None,
-                     merge_projections: bool = True, device="cuda"
-                     ) -> TpuCausalLM:
+                     merge_projections: bool = True, device="cuda",
+                     **_ignored) -> TpuCausalLM:
+        """Load a ``save_low_bit`` directory onto `device`, merged and
+        prepacked. Unknown keyword arguments are ignored, as the JAX
+        package's facade ignores them."""
+        if kv_cache_dtype is None and quantize_kv_cache is not None:
+            kv_cache_dtype = resolve_kv_cache_dtype(quantize_kv_cache)
         params, manifest = lowbit_io.load_low_bit(path, device=device)
         hf_config = manifest["config"]
         archs = hf_config.get("architectures") or ["?"]

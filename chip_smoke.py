@@ -13,7 +13,13 @@ Phases, all of them on every run, each printing one JSON line:
    expert shapes under a prefill-chunk and a decode routing), with times
    of the kernel, the plain version and a PyTorch library yardstick, and
    the least time the card could take (bytes / 3.35 TB/s or flops / 989
-   TFLOP/s). B5 must also equal B3 bit for bit on the same rows laid out
+   TFLOP/s). Every dequant-matmul case launches twice and must repeat
+   its bits (a K split sums in a fixed order). B1's std body runs at M 1,
+   8, 16 and 32 on the five Llama-2-7B linears (the small-M body at 1, 2
+   and 4 n8 tiles of tokens). B6 takes the bound on a tile's real rows
+   that the MoE layer passes (min(N * k, 128)): its decode routings (2, 8
+   and 16 slots) run the small-M entry, its prefill routing the 8-m-tile
+   body. B5 must also equal B3 bit for bit on the same rows laid out
    densely, and B6 each tile of B2 at B2's K split. B3, B4 and B5 run
    again over fp8_e5m2, int8 and int4 caches (codes and f32 scales; the
    yardstick dequantizes, then calls SDPA), timed at the main path's
@@ -22,8 +28,9 @@ Phases, all of them on every run, each printing one JSON line:
    timed on Llama-2-7B's gate_up (4096 x 22016) at M 8 (i4: 128) over the
    int4 layout (fold over the canonical sym_int4, nf4 and sym_int8, mxu8
    over sym_int8 too), and checked at the other m-tile counts; mxu (M 1,
-   8) and i4 (M 64, 128), the load path's defaults, are also checked on
-   each of the other four Llama-2-7B linears.
+   8, 16, 32, timed on gate_up) and i4 (M 64, 128), the load path's
+   defaults, are also checked on each of the other four Llama-2-7B
+   linears.
 4. reference: a 2-layer cut of the full-width model, prefill + one decode
    step on the card (kernels) against the same on the CPU (plain).
 5. engine: seeded full-width Llama-2-7B, sym_int4 linears, merged
@@ -32,7 +39,8 @@ Phases, all of them on every run, each printing one JSON line:
    each; every request must finish, greedy and seeded requests must repeat,
    and every kernel's launch count must rise during the run. A last pass
    of the same requests profiles a few pure-decode steps (device time by
-   kernel group, launches, idle share).
+   kernel group, launches, idle share, and the device time of dequant
+   split-K sums, a second kernel no small-M launch needs).
 6. engine_paged: the same eight requests through the paged engine
    (kv_page_size 128, sharing off), then four requests sharing a
    1024-token prefix with radix sharing on: greedy and seeded streams must
@@ -273,16 +281,20 @@ def _matmul_case(timer, name, x, w, kernel_fn, iters, plain_fn=None):
 
     plain_fn = plain_fn or plain_q_matmul
     got = kernel_fn(x, w)
+    again = kernel_fn(x, w)
     want = plain_fn(x, w)
     torch.cuda.synchronize()
     err = max_err(got, want)
-    ok = allclose(got, want, MATMUL_TOL)
+    # a K split sums in a fixed order: two launches give the same bits
+    repeats = bool(torch.equal(got, again))
+    ok = allclose(got, want, MATMUL_TOL) and repeats
     m, k = x.shape
     n = w.n
     nbytes = (m * k * 2 + w.nbytes + m * n * 2)
     b_ms, b_by = bound_ms(nbytes, 2.0 * m * k * n)
     rec = {"kernel": name, "qtype": w.qtype, "layout": w.layout, "M": m,
            "K": k, "N": n, "max_abs_err": err, "tol": MATMUL_TOL, "ok": ok,
+           "repeat_bit_identical": repeats,
            "bound_ms": b_ms, "bound_by": b_by}
     if iters:
         dense = dequantize(w, torch.bfloat16)
@@ -547,7 +559,8 @@ def _ragged_case(timer, randn, routing, rname, lname, w, iters,
     from bigdl_tpu_torch.ops.cuda.dequant_matmul import (_kind, _split_k,
                                                          dequant_gemm)
     from bigdl_tpu_torch.ops.cuda.moe_dispatch import (
-        _launch, plain_ragged_expert_matmul, ragged_expert_matmul)
+        _launch, plain_ragged_expert_matmul, ragged_entry,
+        ragged_expert_matmul)
     from bigdl_tpu_torch.ops.moe_dispatch import ragged_routing
     from bigdl_tpu_torch.ops.quant import QTensor, dequantize
 
@@ -561,10 +574,18 @@ def _ragged_case(timer, randn, routing, rname, lname, w, iters,
     x = torch.zeros((r.np_, k), dtype=torch.bfloat16, device=routing.device)
     x[r.dest] = randn(len(r.dest), k).to(torch.bfloat16)
     te, tr = r.tile_expert, r.tile_rows
-    got = ragged_expert_matmul(x, w, te, tr)
+    nk = routing.numel()
+    # the static bound moe_mlp_ragged passes: decode takes the small-M entry
+    rows = min(nk, 128)
+
+    def b6():
+        return ragged_expert_matmul(x, w, te, tr, max_tile_rows=rows)
+
+    got = b6()
+    again = b6()
     want = plain_ragged_expert_matmul(x, w, te)
     torch.cuda.synchronize()
-    nk = routing.numel()
+    repeats = bool(torch.equal(got, again))
     used = sorted({e_ for e_, rows in zip(te.tolist(), tr.tolist()) if rows})
     nbytes = nk * k * 2 + r.np_ * n * 2 + len(used) * nbytes_w // num_e
     b_ms, b_by = bound_ms(nbytes, 2.0 * nk * k * n)
@@ -574,8 +595,10 @@ def _ragged_case(timer, randn, routing, rname, lname, w, iters,
            "linear": lname, "tokens": routing.shape[0], "E": num_e,
            "Np": r.np_, "K": k, "N": n, "tile_expert": te.tolist(),
            "tile_rows": tr.tolist(), "experts_with_rows": len(used),
+           "max_tile_rows": rows, "entry": ragged_entry(w, rows),
            "max_abs_err": max_err(got, want), "tol": MATMUL_TOL,
-           "ok": allclose(got, want, MATMUL_TOL),
+           "repeat_bit_identical": repeats,
+           "ok": allclose(got, want, MATMUL_TOL) and repeats,
            "bound_ms": b_ms, "bound_by": b_by,
            "flops_real_rows": 2.0 * nk * k * n,
            "flops_padded": 2.0 * r.np_ * k * n,
@@ -606,8 +629,7 @@ def _ragged_case(timer, randn, routing, rname, lname, w, iters,
             torch.arange(r.np_, device=x.device) % 128)
         rec["library"] = lib_name
         rec["library_max_abs_err"] = max_err(lib(dense)[real], want[real])
-        rec["ms"] = timer.ms(lambda: ragged_expert_matmul(x, w, te, tr),
-                             iters)
+        rec["ms"] = timer.ms(b6, iters)
         rec["plain_ms"] = timer.ms(
             lambda: plain_ragged_expert_matmul(x, w, te), iters)
         rec["library_ms"] = timer.ms(lambda: lib(dequant_all()), iters)
@@ -629,11 +651,14 @@ def phase_kernels(timer):
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
 
-    # B1 / B2 at the five Llama-2-7B linear shapes, sym_int4
+    # B1 / B2 at the five Llama-2-7B linear shapes, sym_int4: B1 (the
+    # small-M body) at 1, 2 and 4 n8 tiles of tokens
     for lname, (k, n) in LLAMA2_7B_LINEARS.items():
         w = quantize(randn(k, n, scale=0.02), "sym_int4")
         for m, fn, kname in ((1, dequant_gemv, "dequant_gemv"),
                              (8, dequant_gemv, "dequant_gemv"),
+                             (16, dequant_gemv, "dequant_gemv"),
+                             (32, dequant_gemv, "dequant_gemv"),
                              (64, dequant_gemm, "dequant_gemm"),
                              (128, dequant_gemm, "dequant_gemm")):
             x = randn(m, k).to(torch.bfloat16)
@@ -724,18 +749,32 @@ def phase_kernels(timer):
             records.append(rec)
             emit({"phase": "kernels", **rec})
         del w
-    # every ported qtype at a small, K-padded shape, and the dense bf16
-    # body at a small shape and at Mixtral's gate/up shape, untimed
+    # B6's small-M entry at its other n8-tile counts: 2 and 16 slots of a
+    # decode step (4 and 32 token-choices), untimed
+    for n_slots in (2, 16):
+        for lname, (k, n) in MIXTRAL_EXPERT_LINEARS.items():
+            w = _stack_q(randn, 8, k, n, "sym_int4")
+            rec = _ragged_case(timer, randn,
+                               _decode_routing(gen, dev, n=n_slots),
+                               f"decode{n_slots}", lname, w, iters=0)
+            records.append(rec)
+            emit({"phase": "kernels", **rec})
+            del w
+    # every ported qtype at a small, K-padded shape (a prefill routing and
+    # a decode one), and the dense bf16 body at a small shape and at
+    # Mixtral's gate/up shape, untimed
     for qtype in ("sym_int4", "asym_int4", "sym_int8", "nf4", "fp4", "nf3",
                   None):
         w = (_stack_q(randn, 4, 1000, 512, qtype) if qtype else
              randn(4, 1024, 512, scale=0.02).to(torch.bfloat16))
-        routing = torch.stack([torch.randperm(4, generator=gen, device=dev)[:2]
-                               for _ in range(64)])
-        rec = _ragged_case(timer, randn, routing, "random", "small", w,
-                           iters=0)
-        records.append(rec)
-        emit({"phase": "kernels", **rec})
+        for rname, tokens in (("random", 64), ("decode", 6)):
+            routing = torch.stack([
+                torch.randperm(4, generator=gen, device=dev)[:2]
+                for _ in range(tokens)])
+            rec = _ragged_case(timer, randn, routing, rname, "small", w,
+                               iters=0)
+            records.append(rec)
+            emit({"phase": "kernels", **rec})
     w = randn(8, 4096, 14336, scale=0.02).to(torch.bfloat16)
     rec = _ragged_case(timer, randn, _prefill_routing(dev), "prefill",
                        "gate_up", w, iters=0)
@@ -809,7 +848,7 @@ def _variant_cases(timer, randn):
         if lname == "gate_up_proj":
             continue
         wm = to_mxu_layout(quantize(randn(k, n, scale=0.02), "sym_int4"))
-        for m in (1, 8):
+        for m in (1, 8, 16, 32):
             run(*bodies[0], wm, m, k, 0, linear=lname)
         for m in (64, 128):
             run("dequant_gemm_i4", i4, dm.plain_q_matmul, wm, m, k, 0,
@@ -826,11 +865,14 @@ def _variant_cases(timer, randn):
         wm = to_mxu_layout(w)
         for body in bodies:
             run(*body, wm, 8, k, 10, linear="gate_up_proj")
+        # mxu (the small-M body) timed at its other n8-tile counts
+        for m in (1, 16, 32):
+            run(*bodies[0], wm, m, k, 10, linear="gate_up_proj")
         run("dequant_gemm_i4", i4, dm.plain_q_matmul, wm, 128, k, 10,
             linear="gate_up_proj")
         # the other m-tile counts and words a thread, untimed
         for m in (1, 17, 32):
-            for body in bodies:
+            for body in bodies[1:] if m != 17 else bodies:
                 run(*body, wm, m, k, 0, linear="gate_up_proj")
             run(*fold, w, m, k, 0, linear="gate_up_proj")
         for m in (40, 64):
@@ -1009,8 +1051,10 @@ def _run_requests(eng, requests):
 
 def _kernel_group(name: str) -> str:
     for key, group in (("ragged_mma", "ragged_expert_matmul (B6)"),
+                       ("smallm_ragged", "ragged_expert_matmul (B6)"),
                        ("q8_mma", "dequant_gemv_mxu8 (B1)"),
                        ("dequant_mma", "dequant_gemv/gemm (B1/B2)"),
+                       ("smallm_gemv", "dequant_gemv/gemm (B1/B2)"),
                        ("finalize_kernel", "dequant split-K sum"),
                        ("decode_attention", "decode_attention (B3)"),
                        ("prefill_attention", "prefill_attention (B4)"),
@@ -1077,6 +1121,8 @@ def _profile_decode(eng, requests, steps=4):
             out.update(device_ms_per_step=dev,
                        device_idle_share=max(0.0, 1.0 - dev / wall_ms),
                        kernel_launches_per_step=launches,
+                       split_k_sum_ms_per_step=groups.get(
+                           "dequant split-K sum", 0.0),
                        device_ms_by_group=dict(sorted(
                            groups.items(), key=lambda kv: -kv[1])))
         else:
@@ -1812,7 +1858,14 @@ def summary(records, counts):
         mine = [r for r in records if r["kernel"] == name]
         main = next(r for r in mine if "ms" in r and all(
             r.get(k) == v for k, v in rep[name].items()))
-        out.append({"name": name, "route": "cuda", **meta,
+        extra = {}
+        if name == "ragged_expert_matmul":
+            dec = next(r for r in mine if "ms" in r and r.get("linear") ==
+                       "gate_up" and r.get("routing") == "decode")
+            extra["decode"] = {k: dec[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "entry", "max_abs_err")}
+        out.append({"name": name, "route": "cuda", **meta, **extra,
                     "launches": int(counts.get(name, 0)),
                     "max_abs_err": max(r["max_abs_err"] for r in mine),
                     "ms": main["ms"], "plain_ms": main["plain_ms"],

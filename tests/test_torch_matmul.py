@@ -186,12 +186,26 @@ def test_split_k_fills_one_wave(monkeypatch, name, m, k, n, occ):
     monkeypatch.setattr(dm, "_occupancy", {})
     monkeypatch.setattr(dm._native, "kernel",
                         lambda lib, sym=None: (lambda *a: occ))
-    cw = dm._cw(name, n)
-    assert cw == (4 if name == "dequant_gemv" and n % 16 == 0 else 1)
+    # words a thread, columns a block and splits: B1 std runs the small-M
+    # body (16-byte loads at M <= 16, 8-byte above; a strip of 32 cw
+    # columns a block; the split with the fewest waves a split), B2 the
+    # 4-warp dequant_mma body (one wave)
+    cw, cols, want = {("dequant_gemv", 8, 22016): (4, 128, 3),
+                      ("dequant_gemv", 1, 4096): (4, 128, 8),
+                      ("dequant_gemv", 20, 4096): (2, 64, 4),
+                      ("dequant_gemv", 8, 260): (1, 32, 1),
+                      ("dequant_gemm", 128, 32000): (1, 128, None),
+                      ("dequant_gemm", 64, 12288): (1, 128, None)}[
+                          (name, m, n)]
+    assert dm._cw(name, n, m) == cw
+    assert dm._block_cols(name, cw) == cols
     split, per = dm._split_k(name, m, n, k, 0, cw, torch.device("cpu"))
     chunks = -(-k // 64)
-    blocks_n = -(-n // (4 * 32 * cw))
+    blocks_n = -(-n // cols)
     assert (split - 1) * per < chunks <= split * per
+    if want is not None:
+        assert split == want
+        return
     assert split == 1 or blocks_n * split <= occ * sms
     # as few chunks per block as one wave allows
     assert per == -(-chunks // max(1, min(chunks, occ * sms // blocks_n)))
@@ -410,7 +424,11 @@ def test_a_body_refuses_a_weight_it_does_not_read(fn, body, qtype, layout):
     ("dequant_gemm_i4", 128, 22016, 1)])
 def test_variant_words_and_split(monkeypatch, name, m, n, cw):
     """Words a thread loads per packed row for each body, and the K split
-    from the occupancy query of the body's own library."""
+    from the occupancy query of the body's own library. mxu runs the
+    small-M body: 16-byte loads at M <= 16, 8-byte above (the id's cw is
+    the dequant_mma body's: 2 at M 8, 1 at M 20)."""
+    cw = {("dequant_gemv_mxu", 8, 22016): 4,
+          ("dequant_gemv_mxu", 20, 22016): 2}.get((name, m, n), cw)
     assert dm._cw(name, n, m) == cw
     calls = []
 
