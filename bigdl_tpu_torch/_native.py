@@ -34,14 +34,17 @@ _c_int = ctypes.c_int
 _c_float = ctypes.c_float
 _c_int64 = ctypes.c_longlong
 
-# C entry points of each library: the launch (returns a cudaError_t) first
+# C entry points of each library: the launch (returns a cudaError_t) first;
+# an entry is its argtypes (returning an int) or (argtypes, restype)
 SIGNATURES = {
     "dequant_gemv": {
         "bigdl_dequant_gemv": [_c_void_p] * 8 + [_c_int] * 8 + [_c_void_p],
         "bigdl_dequant_gemv_blocks_per_sm": [_c_int] * 3},
     "dequant_gemm": {
-        "bigdl_dequant_gemm": [_c_void_p] * 7 + [_c_int] * 8 + [_c_void_p],
-        "bigdl_dequant_gemm_blocks_per_sm": [_c_int] * 3},
+        "bigdl_dequant_gemm": [_c_void_p] * 8 + [_c_int] * 8 + [_c_void_p],
+        "bigdl_dequant_gemm_blocks_per_sm": [_c_int] * 2,
+        "bigdl_dequant_gemm_encode_ns": ([_c_void_p] * 4 + [_c_int] * 7,
+                                         _c_int64)},
     "dequant_variants": {
         "bigdl_dequant_variant": [_c_int] + [_c_void_p] * 7 + [_c_int] * 8
         + [_c_void_p],
@@ -59,9 +62,9 @@ SIGNATURES = {
         "bigdl_paged_decode_attention": [_c_void_p] * 9 + [_c_int] * 8
         + [_c_float, _c_void_p]},
     "moe_dispatch": {
-        "bigdl_ragged_expert_matmul": [_c_void_p] * 9 + [_c_int] * 6
-        + [_c_int64] * 2 + [_c_int] * 2 + [_c_void_p],
-        "bigdl_moe_dispatch_blocks_per_sm": [_c_int] * 3,
+        "bigdl_ragged_expert_matmul": [_c_void_p] * 10 + [_c_int] * 6
+        + [_c_int64] * 2 + [_c_int] * 3 + [_c_void_p],
+        "bigdl_moe_dispatch_blocks_per_sm": [_c_int],
         "bigdl_ragged_expert_matmul_smallm": [_c_void_p] * 10 + [_c_int] * 6
         + [_c_int64] * 2 + [_c_int] * 4 + [_c_void_p],
         "bigdl_moe_dispatch_smallm_blocks_per_sm": [_c_int] * 3},
@@ -141,17 +144,32 @@ def kernel(name: str, symbol: Optional[str] = None):
         fn = _funcs.get((name, symbol))
         if fn is None:
             lib = ctypes.CDLL(build_all((name,))[name])
-            for sym, argtypes in syms.items():
+            for sym, sig in syms.items():
+                argtypes, restype = sig if isinstance(sig, tuple) else (
+                    sig, ctypes.c_int)
                 f = getattr(lib, sym)
                 f.argtypes = argtypes
-                f.restype = ctypes.c_int
+                f.restype = restype
                 _funcs[(name, sym)] = f
             fn = _funcs[(name, symbol)]
     return fn
 
 
+# error codes of the Hopper GEMM's entry points beyond cudaError_t's
+# (dqwg::kEncodeError, dqwg::kNoEncoder in csrc/dequant_wgmma.cuh)
+ENCODE_ERROR = 10000
+NO_ENCODER = 20000
+
+
 def check(name: str, err: int) -> None:
-    """Raise if a kernel entry point reported a CUDA error."""
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed with cudaError_t "
-                           f"{err}")
+    """Raise if a kernel entry point reported an error: a cudaError_t, or
+    a tensor map that did not encode."""
+    if err == 0:
+        return
+    if err >= NO_ENCODER:
+        raise RuntimeError(f"CUDA kernel {name}: the driver has no "
+                           "cuTensorMapEncodeTiled entry point")
+    if err >= ENCODE_ERROR:
+        raise RuntimeError(f"CUDA kernel {name}: a tensor map failed to "
+                           f"encode (CUresult {err - ENCODE_ERROR})")
+    raise RuntimeError(f"CUDA kernel {name} failed with cudaError_t {err}")

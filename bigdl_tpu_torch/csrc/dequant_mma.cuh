@@ -1,11 +1,12 @@
 // Tensor-core dequant matmul shared by B1's fold, mxuflat and mxu8 bodies
-// (dequant_variants.cu, dequant_mxu8.cu, M <= 32), B2 (dequant_gemm.cu,
-// 32 < M <= 128) and B6's 128-row token tiles (moe_dispatch.cu):
-// y[M, N] = x[M, Kp] . W[Kp, N] over block-quantized W, with mma.sync
-// m16n8k16 (bf16 in, f32 accumulate). Its word loads and dequantization
-// (Words, load_chunk, dequant_col) also feed the small-M body of B1's std
-// and mxu bodies and B6's decode tiles (dequant_smallm.cuh), which makes
-// the weights the A operand instead.
+// (dequant_variants.cu, dequant_mxu8.cu, M <= 32) and B6's dense bf16
+// stack (moe_dispatch.cu, 128-row token tiles): y[M, N] = x[M, Kp] .
+// W[Kp, N] over block-quantized W, with mma.sync m16n8k16 (bf16 in, f32
+// accumulate). Its word loads and dequantization (Words, load_chunk,
+// dequant_col) also feed the small-M body of B1's std and mxu bodies and
+// B6's decode tiles (dequant_smallm.cuh), which makes the weights the A
+// operand instead, and dequant_col the Hopper body of B2 and B6's
+// quantized prefill tiles (dequant_wgmma.cuh).
 //
 // The weights are never staged in shared memory. Each thread loads packed
 // 32-bit words straight from device memory (4 adjacent columns of one
@@ -50,9 +51,10 @@
 // ones whose codes the lane loads, so FOLD loads the scales of its 8 * CW
 // C columns instead.
 //
-// B6 runs the same body with a ragged weight address (`RAGGED`): block z
-// takes 128-row tile z of x, whose weight is expert tile_expert[z] of an
-// [E, ...] stack, and whose real rows are a prefix of tile_rows[z] rows
+// B6's dense stack runs the same body with a ragged weight address
+// (`RAGGED`): block z takes 128-row tile z of x, whose weight is expert
+// tile_expert[z] of an [E, ...] stack, and whose real rows are a prefix of
+// tile_rows[z] rows
 // (the rest are zeros): m-tiles past them are neither staged nor
 // multiplied, a tile with no real row loads no weight, and both write
 // zeros, which is what the product of zero rows is.
@@ -619,7 +621,7 @@ dequant_mma_body(const uint16_t* __restrict__ x,       // [M, Kp] bf16
     store_tile<MT, CW>(acc, ws, y, M, N, row0, m_out, wcol, g, t);
 }
 
-// B1 / B2: one weight, all M rows.
+// B1 (fold, mxuflat): one weight, all M rows.
 template <int MT, int CW, int STAGES, int KIND, bool FOLD = false>
 __global__ void __launch_bounds__(kThreads)
 dequant_mma_kernel(const uint16_t* __restrict__ x,
@@ -659,74 +661,24 @@ __global__ void finalize_kernel(const float* __restrict__ ws,
     y[i] = f32_to_bf16(v);
 }
 
-// One launch of the variant for weight kind KIND: B1/B2 over a grid of
-// column strips by K splits; B6 (RAGGED) adds one grid z per 128-row tile.
-template <int MT, int CW, int STAGES, int KIND, bool RAGGED>
-void launch_kind(const void* x, const void* data, const void* scale,
-                 const void* zero, const void* lut, void* ws, void* y, int M,
-                 int Kp, int N, int block, int split, int cps,
-                 const RaggedArgs& ra, cudaStream_t st) {
+// One launch of B6's dense body: column strips by K splits by 128-row
+// tiles (the split-order sum is the caller's).
+template <int MT, int CW, int STAGES, int KIND>
+void launch_ragged(const void* x, const void* data, const void* scale,
+                   const void* zero, const void* lut, void* ws, void* y,
+                   int M, int Kp, int N, int block, int split, int cps,
+                   const RaggedArgs& ra, cudaStream_t st) {
     constexpr int cols = kWarps * 32 * CW;
-    const int strips = (N + cols - 1) / cols;
-    if constexpr (RAGGED) {
-        ragged_mma_kernel<MT, CW, STAGES, KIND>
-            <<<dim3(strips, split, M / (MT * 16)), kThreads, 0, st>>>(
-                (const uint16_t*)x, (const uint8_t*)data,
-                (const uint16_t*)scale, (const uint16_t*)zero,
-                (const float*)lut, (float*)ws, (uint16_t*)y, M, Kp, N, block,
-                cps, ra);
-    } else {
-        dequant_mma_kernel<MT, CW, STAGES, KIND>
-            <<<dim3(strips, split), kThreads, 0, st>>>(
-                (const uint16_t*)x, (const uint8_t*)data,
-                (const uint16_t*)scale, (const uint16_t*)zero,
-                (const float*)lut, (float*)ws, (uint16_t*)y, M, Kp, N, block,
-                cps);
-    }
-}
-
-// Launch the kernel variant for weight kind `kind` (and the split-order
-// sum when split > 1); with RAGGED it is B6 over M / (16 MT) tiles.
-// Returns the cudaError_t of the launches.
-template <int MT, int CW, int STAGES, bool RAGGED = false>
-int launch(int kind, const void* x, const void* data, const void* scale,
-           const void* zero, const void* lut, void* ws, void* y, int M,
-           int Kp, int N, int block, int split, int cps, cudaStream_t st,
-           const RaggedArgs& ra = RaggedArgs{}) {
-#define BIGDL_DQ_KIND(K)                                                   \
-    case K:                                                                \
-        launch_kind<MT, CW, STAGES, K, RAGGED>(x, data, scale, zero, lut,  \
-                                               ws, y, M, Kp, N, block,     \
-                                               split, cps, ra, st);        \
-        break;
-    switch (kind) {
-        BIGDL_DQ_KIND(KIND_SYM4)
-        BIGDL_DQ_KIND(KIND_ASYM4)
-        BIGDL_DQ_KIND(KIND_CODEBOOK4)
-        case KIND_BF16:
-            if constexpr (RAGGED) {
-                launch_kind<MT, CW, STAGES, KIND_BF16, RAGGED>(
-                    x, data, scale, zero, lut, ws, y, M, Kp, N, block, split,
-                    cps, ra, st);
-                break;
-            } else {
-                return (int)cudaErrorInvalidValue;
-            }
-        BIGDL_DQ_KIND(KIND_SYM8)
-        default:                   // KIND_I4 runs through launch_variant
-            return (int)cudaErrorInvalidValue;
-    }
-#undef BIGDL_DQ_KIND
-    if (split > 1) {
-        const int mn = M * N;
-        finalize_kernel<<<(mn + 255) / 256, 256, 0, st>>>(
-            (const float*)ws, (uint16_t*)y, split, mn);
-    }
-    return (int)cudaGetLastError();
+    ragged_mma_kernel<MT, CW, STAGES, KIND>
+        <<<dim3((N + cols - 1) / cols, split, M / (MT * 16)), kThreads, 0,
+            st>>>((const uint16_t*)x, (const uint8_t*)data,
+                  (const uint16_t*)scale, (const uint16_t*)zero,
+                  (const float*)lut, (float*)ws, (uint16_t*)y, M, Kp, N,
+                  block, cps, ra);
 }
 
 // One launch of a single-kind variant (the int4-layout and scale-folded
-// bodies: fold, mxuflat, i4) and the split-order sum when split > 1.
+// bodies: fold, mxuflat) and the split-order sum when split > 1.
 // Returns the cudaError_t of the launches.
 template <int MT, int CW, int STAGES, int KIND, bool FOLD>
 int launch_variant(const void* x, const void* data, const void* scale,
@@ -753,44 +705,6 @@ int variant_blocks_per_sm() {
     const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &n, dequant_mma_kernel<MT, CW, STAGES, KIND, FOLD>, kThreads, 0);
     return e == cudaSuccess ? n : 0;
-}
-
-// Resident blocks per SM of the kernel for weight kind KIND (0 on error).
-template <int MT, int CW, int STAGES, int KIND, bool RAGGED>
-int occupancy() {
-    int n = 0;
-    cudaError_t e;
-    if constexpr (RAGGED) {
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &n, ragged_mma_kernel<MT, CW, STAGES, KIND>, kThreads, 0);
-    } else {
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &n, dequant_mma_kernel<MT, CW, STAGES, KIND>, kThreads, 0);
-    }
-    return e == cudaSuccess ? n : 0;
-}
-
-// Resident blocks per SM of the variant for `kind` (0 on error).
-template <int MT, int CW, int STAGES, bool RAGGED = false>
-int blocks_per_sm(int kind) {
-    switch (kind) {
-        case KIND_SYM4:
-            return occupancy<MT, CW, STAGES, KIND_SYM4, RAGGED>();
-        case KIND_ASYM4:
-            return occupancy<MT, CW, STAGES, KIND_ASYM4, RAGGED>();
-        case KIND_CODEBOOK4:
-            return occupancy<MT, CW, STAGES, KIND_CODEBOOK4, RAGGED>();
-        case KIND_BF16:
-            if constexpr (RAGGED) {
-                return occupancy<MT, CW, STAGES, KIND_BF16, RAGGED>();
-            } else {
-                return 0;
-            }
-        case KIND_SYM8:
-            return occupancy<MT, CW, STAGES, KIND_SYM8, RAGGED>();
-        default:
-            return 0;
-    }
 }
 
 // The shape rules every launch needs (see the wrappers in

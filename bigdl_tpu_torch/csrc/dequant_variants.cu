@@ -1,37 +1,38 @@
-// The dequant-matmul bodies that read a prepacked (int4-layout) weight or
-// fold the block scales out of the product:
+// The decode-GEMV bodies (B1) that read a prepacked (int4-layout) weight
+// or fold the block scales out of the product:
 //
-//   mxu      B1, int4 layout, scale-folded       _gemv_kernel_mxu (L234)
-//   fold     B1, canonical packing, scale-folded _gemv_kernel_fold (L172)
-//   mxuflat  B1, int4 layout, per-weight scale   _gemv_kernel_mxuflat (L265)
-//   i4       B2, int4 layout, per-weight scale   _kernel_i4 (L133)
+//   mxu      int4 layout, scale-folded       _gemv_kernel_mxu (L234)
+//   fold     canonical packing, scale-folded _gemv_kernel_fold (L172)
+//   mxuflat  int4 layout, per-weight scale   _gemv_kernel_mxuflat (L265)
 //
-// (bigdl_tpu/ops/pallas/dequant_matmul.py). mxu and fold compute
+// (bigdl_tpu/ops/pallas/dequant_matmul.py). B2's int4-layout body
+// (`_kernel_i4`) is the KIND_I4 decode of dequant_gemm.cu's entry point.
+// mxu and fold compute
 // y = sum over blocks r of s[r, n] * (x . codes)[r]: the codes are exact in
 // bf16 (a codebook value is rounded to bf16 first), each block's product
-// sums in f32 and is then scaled once in f32 per column. mxuflat and i4
-// dequantize every weight to bf16 (code times scale, rounded once) as the
+// sums in f32 and is then scaled once in f32 per column. mxuflat
+// dequantizes every weight to bf16 (code times scale, rounded once) as the
 // std bodies do, reading the int4 layout.
 //
-// Bound on the H100: bytes for B1 (decode M moves 4.5 bits a weight for
-// 2 M flops), operations for i4 at M = 128 (see dequant_gemm.cu).
+// Bound on the H100: bytes (decode M moves 4.5 bits a weight for 2 M
+// flops).
 //
 // mxu, the load path's decode default, runs on the small-M body of
 // dequant_smallm.cuh: the weights are the mma A operand, so the C rows a
 // lane holds are the columns whose codes and scales it loaded, and FOLD
 // needs no second scale load and no second set of C fragments; 16-byte
 // loads at M <= 16, one launch with the K split summed by the last block.
-// fold, mxuflat and i4 (flag-selected, and B2's prefill body) run on the
-// tensor-core template of dequant_mma.cuh, where x is the A operand: FOLD
+// fold and mxuflat (flag-selected) run on the tensor-core template of
+// dequant_mma.cuh, where x is the A operand: FOLD
 // there keeps a second set of f32 C fragments and loads its C columns'
 // scales, so fold runs at 2 (M <= 16) or 1 words a thread per row to stay
 // under 255 registers, and a K split takes a second kernel.
 #include "dequant_smallm.cuh"
 
-enum Body : int { BODY_MXU = 0, BODY_FOLD = 1, BODY_MXUFLAT = 2, BODY_I4 = 3 };
+enum Body : int { BODY_MXU = 0, BODY_FOLD = 1, BODY_MXUFLAT = 2 };
 
 // Calls F(MT, CW, STAGES, KIND, FOLD) for the dequant_mma.cuh variant a
-// launch of fold, mxuflat or i4 takes, or returns `err` for a combination
+// launch of fold or mxuflat takes, or returns `err` for a combination
 // that no variant takes.
 #define BIGDL_VARIANT(F, err)                                               \
     switch (body) {                                                         \
@@ -45,10 +46,6 @@ enum Body : int { BODY_MXU = 0, BODY_FOLD = 1, BODY_MXUFLAT = 2, BODY_I4 = 3 };
             if (M <= 16 && cw == 1) F(1, 1, 4, KIND_I4, false)              \
             if (M <= 32 && cw == 4) F(2, 4, 2, KIND_I4, false)              \
             if (M <= 32 && cw == 1) F(2, 1, 4, KIND_I4, false)              \
-            break;                                                          \
-        case BODY_I4:                                                       \
-            if (M <= 64 && cw == 1) F(4, 1, 2, KIND_I4, false)              \
-            if (M <= 128 && cw == 1) F(8, 1, 2, KIND_I4, false)             \
             break;                                                          \
     }                                                                       \
     return err;

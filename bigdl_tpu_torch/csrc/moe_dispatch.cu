@@ -4,75 +4,119 @@
 // y[128 z : 128 z + 128] = x[128 z : 128 z + 128] . W[tile_expert[z]], with
 // W an [E, Kp, N] stack of quantized planes.
 //
-// Replaces bigdl_tpu/ops/pallas/moe_dispatch.py::ragged_expert_matmul (its
-// `_ragged_kernel_q` body): every weight is dequantized with B1's
+// Replaces bigdl_tpu/ops/pallas/moe_dispatch.py::ragged_expert_matmul (L90,
+// its `_ragged_kernel_q` body L66): every weight is dequantized with B1's
 // arithmetic (f32 code times f32 scale, plus zero for asym, one rounding
 // to bf16) and multiplied with f32 accumulation, for every qtype B1 and B2
 // take; a dense bf16 stack (`_ragged_kernel_dense`) feeds its weights to
 // the tensor cores as they are (kind KIND_BF16, K % 32 == 0).
 //
 // Bound on the H100: at a 256-token prefill chunk of Mixtral-8x7B
-// (512 token-choices over 8 experts) the real rows do ~60 GFLOP per
-// projection against ~230 MB of packed planes, near the card's ridge; at
-// an 8-slot decode step 16 real rows read up to 8 experts' planes, so the
-// bytes bound it.
+// (512 token-choices over 8 experts) each tile holding rows streams its
+// expert's ~33 MB of packed planes for 52-128 rows, so the bytes bound it;
+// at an 8-slot decode step 16 real rows read up to 8 experts' planes, so
+// the bytes bound it too.
 //
-// Design: B2's tensor-core body (dequant_mma.cuh, eight m-tiles, x staged
-// by cp.async) with a ragged weight address. Block z adds
-// tile_expert[z] times the expert stride to the data, scale and zero
-// planes, where the TPU kernel's BlockSpec index map did the same from a
-// scalar-prefetched id. The rows a tile really holds (tile_rows, computed
-// on the device from the routing) bound the m-tiles it stages and
-// multiplies, so a decode tile with 2 real rows does 1/8 of the
-// tensor-core work, and the trailing tiles past the last expert region
-// load nothing and write zeros. K may be split across blocks, summed in a
-// fixed order, as in B2.
+// Design: prefill tiles of a quantized stack run B2's Hopper body
+// (dequant_wgmma.cuh: wgmma, TMA, an mbarrier ring) with a ragged weight
+// address. Block z reads tile_expert[z]'s planes through 3-D tensor maps
+// over the [E, rows, N] stacks, where the TPU kernel's BlockSpec index map
+// did the same from a scalar-prefetched id. The rows a tile really holds
+// (tile_rows, computed on the device from the routing) pick 64 or 128
+// tokens for its wgmma, and the trailing tiles past the last expert region
+// load nothing and write zeros. K may be split across blocks, summed by the
+// strip's last block in a fixed order, as in B2 (B6 at B2's split equals B2
+// on every real tile, bit for bit). A dense bf16 stack
+// (`_ragged_kernel_dense`) keeps the mma.sync body of dequant_mma.cuh
+// (x staged by cp.async, eight m-tiles).
 //
 // Decode tiles take a second entry, on the small-M body of
 // dequant_smallm.cuh: at an 8-slot decode step a tile holds at most 16
-// real rows (N * k token-choices), and the 8-m-tile body above, sized for
-// 128 rows with 4-byte loads, read 5x its bound there. The caller passes
-// the static bound on a tile's real rows (max_tile_rows, at most 32); the
-// small-M body stages and multiplies only a tile's real rows, in n8 tiles
-// of tokens against 16-byte-load weight tiles, and writes the tile's other
-// rows as zeros. The dense bf16 stack keeps the body above.
-#include "dequant_smallm.cuh"
+// real rows (N * k token-choices). The caller passes the static bound on a
+// tile's real rows (max_tile_rows, at most 32); the small-M body stages and
+// multiplies only a tile's real rows, in n8 tiles of tokens against
+// 16-byte-load weight tiles, and writes the tile's other rows as zeros.
+#include "dequant_wgmma.cuh"
 
-// Returns the cudaError_t of the launches (0 on success). x is bf16
-// [Np, Kp] with Np a multiple of 128; data/scale/zero are the expert-0
-// planes of an [E, ...] stack whose matrices lie data_es bytes and
-// scale_es scale elements apart (kind KIND_BF16: data is the bf16 stack,
-// block 32, scale and zero unused); tile_expert and tile_rows are int32
-// [Np / 128]; ws holds split * Np * N floats when split > 1; y is bf16
-// [Np, N].
+// Returns 0 or an error code (a cudaError_t, or dqwg::kEncodeError +
+// CUresult for a tensor map that failed to encode). x is bf16 [Np, Kp] with
+// Np a multiple of 128; data/scale/zero are the expert-0 planes of an
+// [E, ...] stack whose matrices lie data_es bytes and scale_es scale
+// elements apart (kind KIND_BF16: data is the bf16 stack, block 32, scale
+// and zero unused); tile_expert and tile_rows are int32 [Np / 128]; ws
+// holds split * Np * N floats when split > 1, and tickets (quantized
+// stacks) at least (Np / 128) * ceil(N / 128) zeroed counters; y is bf16
+// [Np, N]; planes_tma as bigdl_dequant_gemm's (quantized stacks; data_es
+// and 2 scale_es must then be multiples of 16).
 extern "C" int bigdl_ragged_expert_matmul(
     const void* x, const void* data, const void* scale, const void* zero,
     const void* lut, const void* tile_expert, const void* tile_rows,
-    void* ws, void* y, int Np, int Kp, int N, int block, int kind,
-    int num_experts, long long data_es, long long scale_es, int split,
-    int chunks_per_split, void* stream) {
+    void* ws, void* tickets, void* y, int Np, int Kp, int N, int block,
+    int kind, int num_experts, long long data_es, long long scale_es,
+    int split, int chunks_per_split, int planes_tma, void* stream) {
     if (Np < 128 || Np % 128 || num_experts < 1 || tile_expert == nullptr ||
-        tile_rows == nullptr ||
-        data_es < 0 || scale_es < 0 ||
-        !dqmma::args_ok(Np, Kp, N, block, kind, split, chunks_per_split, ws,
-                        1)) {
+        tile_rows == nullptr || data_es < 0 || scale_es < 0) {
         return (int)cudaErrorInvalidValue;
     }
     const dqmma::RaggedArgs ra{(const int*)tile_expert,
                                (const int*)tile_rows, data_es, scale_es,
                                num_experts};
-    return dqmma::launch<8, 1, 2, true>(kind, x, data, scale, zero, lut, ws,
-                                        y, Np, Kp, N, block, split,
-                                        chunks_per_split,
-                                        (cudaStream_t)stream, ra);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (kind == KIND_BF16) {
+        if (!dqmma::args_ok(Np, Kp, N, block, kind, split, chunks_per_split,
+                            ws, 1)) {
+            return (int)cudaErrorInvalidValue;
+        }
+        dqmma::launch_ragged<8, 1, 2, KIND_BF16>(
+            x, data, scale, zero, lut, ws, y, Np, Kp, N, block, split,
+            chunks_per_split, ra, st);
+        if (split > 1) {
+            const int mn = Np * N;
+            dqmma::finalize_kernel<<<(mn + 255) / 256, 256, 0, st>>>(
+                (const float*)ws, (uint16_t*)y, split, mn);
+        }
+        return (int)cudaGetLastError();
+    }
+    if (kind == KIND_I4 ||
+        !dqwg::args_ok(x, Np, Kp, N, block, kind, split, chunks_per_split,
+                       ws, tickets) ||
+        (planes_tma && !dqwg::planes_tma_ok(N, data, scale, zero, data_es,
+                                            scale_es))) {
+        return (int)cudaErrorInvalidValue;
+    }
+    dqwg::Args a{};
+    a.lut = (const float*)lut;
+    a.ws = (float*)ws;
+    a.tickets = (unsigned*)tickets;
+    a.y = (uint16_t*)y;
+    a.data = (const uint8_t*)data;
+    a.scale = (const uint16_t*)scale;
+    a.zero = (const uint16_t*)zero;
+    a.tile_expert = (const int*)tile_expert;
+    a.tile_rows = (const int*)tile_rows;
+    a.data_es = data_es;
+    a.scale_es = scale_es;
+    a.M = Np;
+    a.Kp = Kp;
+    a.N = N;
+    a.cps = chunks_per_split;
+    a.num_experts = num_experts;
+    a.planes_tma = planes_tma;
+    return dqwg::launch<true>(kind, x, data, scale, zero, a, Np, Np / 128,
+                              num_experts, split, st);
 }
 
-// Resident blocks per SM of B6's kernel for `kind` (0 on error); the
-// wrapper sizes its K split from it (M and cw are B2's arguments: B6 always
-// runs 128-row tiles with cw 1).
-extern "C" int bigdl_moe_dispatch_blocks_per_sm(int M, int kind, int cw) {
-    if (M != 128 || cw != 1) return 0;
-    return dqmma::blocks_per_sm<8, 1, 2, true>(kind);
+// Resident blocks per SM of B6's tiles entry for `kind` (0 on error); the
+// wrapper sizes its K split from it.
+extern "C" int bigdl_moe_dispatch_blocks_per_sm(int kind) {
+    if (kind == KIND_BF16) {
+        int n = 0;
+        const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, dqmma::ragged_mma_kernel<8, 1, 2, KIND_BF16>, dqmma::kThreads,
+            0);
+        return e == cudaSuccess ? n : 0;
+    }
+    return dqwg::occupancy<true>(kind, 128);
 }
 
 // B6 on the small-M body (quantized stacks; every tile holds at most

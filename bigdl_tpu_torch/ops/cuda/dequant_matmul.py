@@ -4,9 +4,10 @@ version.
 
 Counterpart of ``bigdl_tpu/ops/pallas/dequant_matmul.py``
 (``_q_gemv_pallas`` and ``_q_matmul_generic``). Each Pallas body is a
-CUDA body on the tensor-core dequant matmul of ``csrc/dequant_mma.cuh``
-or, marked (*), on the small-M body of ``csrc/dequant_smallm.cuh``,
-counting its launches under its own name:
+CUDA body on the tensor-core dequant matmul of ``csrc/dequant_mma.cuh``,
+marked (*) on the small-M body of ``csrc/dequant_smallm.cuh`` and (**) on
+the Hopper GEMM body of ``csrc/dequant_wgmma.cuh``, counting its launches
+under its own name:
 
 ========================  ==========================  ===================
 launch counter            Pallas body                 source
@@ -17,8 +18,8 @@ launch counter            Pallas body                 source
 ``dequant_gemv_fold``     B1 ``_gemv_kernel_fold``    dequant_variants.cu
 ``dequant_gemv_mxuflat``  B1 ``_gemv_kernel_mxuflat`` dequant_variants.cu
 ``dequant_gemv_mxu8``     B1 ``_gemv_kernel_mxu8``    dequant_mxu8.cu
-``dequant_gemm``          B2 ``_kernel_4bit/_int8``   dequant_gemm.cu
-``dequant_gemm_i4``       B2 ``_kernel_i4``           dequant_variants.cu
+``dequant_gemm``          B2 ``_kernel_4bit/_int8``   dequant_gemm.cu (**)
+``dequant_gemm_i4``       B2 ``_kernel_i4``           dequant_gemm.cu (**)
 ========================  ==========================  ===================
 
 (*) The small-M body makes the weights the mma A operand and x the B
@@ -26,6 +27,14 @@ operand in n8 tiles of tokens; a block is 4 warps on one strip of 32 * cw
 columns, and a K split is summed in split order by the strip's last block
 in the same launch (a ticket a strip, from a buffer that lives for the
 process). One launch a call, no host sync.
+
+(**) The Hopper body makes the weights wgmma's A operand (from registers)
+and x its B operand (from shared memory, by TMA), ``wgmma_tokens(M)``
+tokens a wgmma; a block is two consumer warpgroups on one strip of
+``WGMMA_COLS`` columns and a producer warp, and a K split is summed as on
+the small-M body. B2's std and i4 bodies are one entry point, the weight
+kind picking the decode. ``plane_loads`` says which operands arrive by TMA
+and which by ``cp.async``.
 
 The std bodies (``dequant_gemv``, ``dequant_gemm``), ``mxuflat`` and
 ``i4`` dequantize every weight in f32 (code times block scale, plus block
@@ -52,7 +61,7 @@ from bigdl_tpu_torch.config import MATMUL_MAX_M_CEILING
 from bigdl_tpu_torch.ops.codebooks import CODEBOOKS, padded_lut
 from bigdl_tpu_torch.ops.cuda import LAUNCHES
 from bigdl_tpu_torch.ops.quant import (QTensor, _unpack4, dequantize,
-                                       unpack_int4_rows)
+                                       get_qtype, unpack_int4_rows)
 
 # decode-GEMV row ceiling (the engine's decode batch and short prefills)
 GEMV_MAX_M = 32
@@ -80,12 +89,23 @@ _GEMV = {"std": "dequant_gemv", "mxu": "dequant_gemv_mxu",
          "mxu8": "dequant_gemv_mxu8"}
 _GEMM = {"std": "dequant_gemm", "i4": "dequant_gemm_i4"}
 _VARIANT_BODY = {"dequant_gemv_mxu": 0, "dequant_gemv_fold": 1,
-                 "dequant_gemv_mxuflat": 2, "dequant_gemm_i4": 3}
+                 "dequant_gemv_mxuflat": 2}
 
 # geometry names on the small-M body (dequant_smallm.cuh): B1's std and
 # mxu bodies and B6's small-M entry (ops/cuda/moe_dispatch.py)
 _SMALLM = frozenset({"dequant_gemv", "dequant_gemv_mxu",
                      "moe_dispatch_smallm"})
+# geometry names on the Hopper GEMM body (dequant_wgmma.cuh): B2's two
+# bodies and B6's quantized tiles (ops/cuda/moe_dispatch.py); B6's dense
+# stack stays on dequant_mma.cuh as "moe_dispatch_dense"
+_WGMMA = frozenset({"dequant_gemm", "dequant_gemm_i4", "moe_dispatch"})
+# output columns a block of the Hopper body computes (two warpgroups, two
+# 64-column tiles each)
+WGMMA_COLS = 256
+# the Hopper body's K split: at most this many splits, at least this many
+# 64-row chunks a split (wgmma_split)
+WGMMA_MAX_SPLIT = 5
+WGMMA_MIN_CHUNKS = 12
 # the tickets a device's buffer holds at first (grown on demand)
 _TICKETS_MIN = 4096
 
@@ -323,9 +343,57 @@ def _cw(name: str, n: int, m: int = 1) -> int:
 
 def _block_cols(name: str, cw: int) -> int:
     """Output columns one block computes: a strip of 32 * cw on the
-    small-M body (its 4 warps split the strip's K), 4 warps of 32 * cw
-    each on dequant_mma.cuh."""
+    small-M body (its 4 warps split the strip's K), ``WGMMA_COLS`` on the
+    Hopper body, 4 warps of 32 * cw each on dequant_mma.cuh."""
+    if name in _WGMMA:
+        return WGMMA_COLS
     return (32 if name in _SMALLM else _WARPS * 32) * cw
+
+
+def wgmma_tokens(m: int) -> int:
+    """Tokens one wgmma of the Hopper body multiplies for M rows (B6: a
+    tile's real rows): its two variants, 64 at M <= 64, else 128."""
+    return 64 if m <= 64 else 128
+
+
+def wgmma_strips(n: int) -> int:
+    """Column strips (blocks a K split and token tile) of the Hopper body
+    over N output columns; also the split-K tickets one tile takes."""
+    return -(-n // WGMMA_COLS)
+
+
+def plane_loads(n: int, qtype: str, addresses=()) -> Dict[str, str]:
+    """How the Hopper body loads each operand of a launch, ``"tma"`` or
+    ``"cp.async"``: x always by TMA; the code, scale (and asym zero)
+    planes by TMA when N % 16 == 0 and every address in `addresses` (the
+    planes' pointers, and B6's expert strides in bytes) is 16-byte
+    aligned, else all by 4-byte ``cp.async`` (what
+    ``dqwg::planes_tma_ok`` in csrc/dequant_wgmma.cuh asks)."""
+    way = "tma" if n % 16 == 0 and all(a % 16 == 0 for a in addresses) \
+        else "cp.async"
+    loads = {"x": "tma", "codes": way, "scale": way}
+    if get_qtype(qtype).kind == "asym":
+        loads["zero"] = way
+    return loads
+
+
+def wgmma_split(blocks: int, slots: int, chunks: int) -> int:
+    """The Hopper body's K split: as many splits as keep every block of
+    the launch resident at once (one wave of `slots`), at most
+    ``WGMMA_MAX_SPLIT`` and at least ``WGMMA_MIN_CHUNKS`` chunks a split,
+    and none once the strips alone fill the card. A split costs its f32
+    partials' round trip, which the last block of a strip sums alone, and
+    the body's blocks run no faster for a short K, so unlike the small-M
+    body it never trades a wave for a split (tools/bench_gemm.py sweeps the
+    splits)."""
+    return max(1, min(chunks // WGMMA_MIN_CHUNKS, slots // max(1, blocks),
+                      WGMMA_MAX_SPLIT))
+
+
+def wgmma_workspace(split: int, rows: int, n: int):
+    """Shape of the f32 split-K workspace of a Hopper-body launch over
+    `rows` rows of y (B6: the token buffer's Np), or None with one split."""
+    return (split, rows, n) if split > 1 else None
 
 
 def smallm_rows(m: int) -> int:
@@ -336,7 +404,13 @@ def smallm_rows(m: int) -> int:
 
 def _occupancy_query(name: str):
     """(m, kind, cw) -> resident blocks per SM of the variant a launch of
-    counter `name` takes."""
+    counter (or geometry) `name` takes."""
+    if name in ("dequant_gemm", "dequant_gemm_i4"):
+        q = _native.kernel("dequant_gemm", "bigdl_dequant_gemm_blocks_per_sm")
+        return lambda m, kind, cw: q(m, kind)
+    if name in ("moe_dispatch", "moe_dispatch_dense"):
+        q = _native.kernel("moe_dispatch", "bigdl_moe_dispatch_blocks_per_sm")
+        return lambda m, kind, cw: q(kind)
     if name in _VARIANT_BODY:
         q = _native.kernel("dequant_variants",
                            "bigdl_dequant_variant_blocks_per_sm")
@@ -351,11 +425,15 @@ def _occupancy_query(name: str):
 
 def _split_k(name: str, m: int, n: int, kp: int, kind: int, cw: int,
              device, tiles: int = 1) -> Tuple[int, int]:
-    """(split, chunks per split): cut K (in 64-row chunks) into as many
-    splits as keep every block of the launch (``tiles`` row tiles of
-    column strips) resident at once (one wave), with no empty split."""
+    """(split, chunks per split): cut K (in 64-row chunks) into splits
+    for the launch's blocks (``tiles`` row tiles of column strips), with
+    no empty split. The small-M body takes ``_balanced_split``, the Hopper
+    body ``wgmma_split``, dequant_mma.cuh's bodies as many splits as keep
+    every block resident at once (one wave)."""
     if name in _SMALLM:
         tier = smallm_rows(m)                                  # n8 tiles
+    elif name in _WGMMA:
+        tier = wgmma_tokens(m)                                 # variants
     elif name.startswith("dequant_gemv"):
         tier = m <= 16                                         # m-tiles
     else:
@@ -368,10 +446,13 @@ def _split_k(name: str, m: int, n: int, kp: int, kind: int, cw: int,
             raise RuntimeError(f"{name}: occupancy query failed")
         _occupancy[key] = occ
     chunks = -(-kp // _CHUNK)
-    blocks = tiles * -(-n // _block_cols(name, cw))
+    blocks = tiles * (wgmma_strips(n) if name in _WGMMA
+                      else -(-n // _block_cols(name, cw)))
     slots = occ * _sm_count(device)
     if name in _SMALLM:
         split = _balanced_split(blocks, slots, chunks)
+    elif name in _WGMMA:
+        split = wgmma_split(blocks, slots, chunks)
     else:
         split = max(1, min(chunks, slots // blocks))
     per = -(-chunks // split)
@@ -410,6 +491,7 @@ def _stream(device: torch.device) -> int:
 
 
 def _launch(name: str, x: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """B1 through the body counted as `name` (a value of ``_GEMV``)."""
     x2 = _prepare(x, w, name)
     m, kp = x2.shape
     n = w.n
@@ -438,15 +520,42 @@ def _launch(name: str, x: torch.Tensor, w: QTensor) -> torch.Tensor:
             w.scale.data_ptr(), _lut_ptr(w, x2.device), wsp, tickets,
             y.data_ptr(), m, kp, n, w.qt.block_size, kind, split, per, cw,
             stream)
-    else:
-        planes = (x2.data_ptr(), w.data.data_ptr(), w.scale.data_ptr(),
-                  None if w.zero is None else w.zero.data_ptr(),
-                  _lut_ptr(w, x2.device), wsp)
-        if name in _SMALLM:
-            planes += (tickets,)
+    else:                                  # dequant_gemv (small-M body)
         err = _native.kernel(name)(
-            *planes, y.data_ptr(), m, kp, n, w.qt.block_size, kind, split,
-            per, cw, stream)
+            x2.data_ptr(), w.data.data_ptr(), w.scale.data_ptr(),
+            None if w.zero is None else w.zero.data_ptr(),
+            _lut_ptr(w, x2.device), wsp, tickets, y.data_ptr(), m, kp, n,
+            w.qt.block_size, kind, split, per, cw, stream)
+    _native.check(name, err)
+    LAUNCHES[name] += 1
+    return y
+
+
+def _launch_gemm(name: str, x: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """B2 (std or i4, by the weight's layout) on the Hopper body: one
+    native call, its K split summed in the same launch."""
+    x2 = _prepare(x, w, name)
+    m, kp = x2.shape
+    n = w.n
+    kind = _kind(w)
+    split, per = _split_k(name, m, n, kp, kind, 1, x2.device)
+    planes = [w.data, w.scale] + ([] if w.zero is None else [w.zero])
+    tma = plane_loads(n, w.qtype, [p.data_ptr() for p in planes])[
+        "codes"] == "tma"
+    shape = wgmma_workspace(split, m, n)
+    # the workspace lives to the launch (the allocator may hand a freed
+    # block to y)
+    ws = tickets = None
+    if shape is not None:
+        ws = torch.empty(shape, dtype=torch.float32, device=x2.device)
+        tickets = ticket_buffer(x2.device, wgmma_strips(n)).data_ptr()
+    y = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
+    err = _native.kernel("dequant_gemm")(
+        x2.data_ptr(), w.data.data_ptr(), w.scale.data_ptr(),
+        None if w.zero is None else w.zero.data_ptr(),
+        _lut_ptr(w, x2.device), None if ws is None else ws.data_ptr(),
+        tickets, y.data_ptr(), m, kp, n,
+        w.qt.block_size, kind, split, per, int(tma), _stream(x2.device))
     _native.check(name, err)
     LAUNCHES[name] += 1
     return y
@@ -479,4 +588,4 @@ def dequant_gemm(x: torch.Tensor, w: QTensor, body: str = "std"
     if not 1 <= x.shape[0] <= GEMM_MAX_M:
         raise ValueError(f"dequant_gemm: M={x.shape[0]} outside "
                          f"[1, {GEMM_MAX_M}]")
-    return _launch(_GEMM[body], x, w)
+    return _launch_gemm(_GEMM[body], x, w)

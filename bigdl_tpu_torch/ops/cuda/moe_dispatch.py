@@ -1,15 +1,16 @@
 """Ragged expert matmul, kernel B6, with its plain version.
 
 Counterpart of ``bigdl_tpu/ops/pallas/moe_dispatch.py::ragged_expert_matmul``
-(its quantized and dense bf16 bodies). Source: ``csrc/moe_dispatch.cu``,
-B2's tensor-core dequant body (``csrc/dequant_mma.cuh``) with a per-tile
-weight address; a dense stack takes the same body with bf16 weights.
-Decode tiles take a second entry on B1's small-M body
-(``csrc/dequant_smallm.cuh``): the caller passes ``max_tile_rows``, a
-bound on the real rows of any tile known on the host without reading the
-device (``moe_mlp_ragged``: the token-choice count ``N * k``, at most a
-tile); at most ``SMALLM_MAX_ROWS`` it takes the small-M entry over a
-quantized stack, else the 8-m-tile body.
+(its quantized and dense bf16 bodies). Source: ``csrc/moe_dispatch.cu``.
+A quantized stack's tiles run B2's Hopper body (``csrc/dequant_wgmma.cuh``,
+wgmma fed by TMA) with a per-tile weight address, 64 or 128 tokens a tile
+from its real rows; a dense stack takes the mma.sync body of
+``csrc/dequant_mma.cuh`` with bf16 weights. Decode tiles take a second
+entry on B1's small-M body (``csrc/dequant_smallm.cuh``): the caller
+passes ``max_tile_rows``, a bound on the real rows of any tile known on
+the host without reading the device (``moe_mlp_ragged``: the token-choice
+count ``N * k``, at most a tile); at most ``SMALLM_MAX_ROWS`` it takes the
+small-M entry over a quantized stack, else the tiles entry.
 
 x [Np, K] is a token buffer sorted by expert and padded so that every
 ``TOKEN_TILE``-row tile holds the rows of one expert; tile i is multiplied
@@ -19,8 +20,9 @@ it once to bf16, round x to bf16, and sum the products in f32; the output
 is bf16 [Np, N].
 
 ``tile_rows`` (int32 [Np / TOKEN_TILE]) tells the kernel how many leading
-rows of each tile are real; it skips the 16-row m-tiles past them and
-writes zeros there. The caller guarantees that those rows of x are zeros,
+rows of each tile are real; it multiplies 64 rows of a tile that holds at
+most 64 (the dense body: the 16-row m-tiles that hold real rows) and
+writes zeros past them. The caller guarantees that those rows of x are zeros,
 so the result is x's product all the same; the plain version computes
 every row.
 """
@@ -36,13 +38,15 @@ from bigdl_tpu_torch.ops.cuda import LAUNCHES
 from bigdl_tpu_torch.ops.cuda.dequant_matmul import (_block_cols, _cw,
                                                      _kind, _lut_ptr,
                                                      _prepare, _split_k,
-                                                     _stream, smallm_rows,
-                                                     ticket_buffer)
+                                                     _stream, plane_loads,
+                                                     smallm_rows,
+                                                     ticket_buffer,
+                                                     wgmma_strips,
+                                                     wgmma_workspace)
 from bigdl_tpu_torch.ops.quant import QTensor, dequantize
 
 # rows of one token tile: one expert per tile (the JAX package's TOKEN_TILE,
-# and the 8 m-tiles of B6's blocks; the K split sizes its occupancy as B2's
-# 8-m-tile variant)
+# and the most tokens one block of the tiles entry multiplies)
 TOKEN_TILE = 128
 
 # the most real rows a tile may hold for the small-M entry (its variants
@@ -122,7 +126,7 @@ def ragged_entry(w: Union[QTensor, torch.Tensor],
     """The entry a launch takes, from the caller's bound on a tile's real
     rows alone: ``smallm`` (B1's small-M body) for a quantized stack with
     ``max_tile_rows <= SMALLM_MAX_ROWS``, else ``tiles`` (the 8-m-tile
-    body). No bound (None) keeps the 8-m-tile body."""
+    body). No bound (None) keeps the tiles entry."""
     if max_tile_rows is None:
         return "tiles"
     if max_tile_rows < 1:
@@ -146,7 +150,8 @@ def _launch(x: torch.Tensor, w: Union[QTensor, torch.Tensor],
     if np_ < TOKEN_TILE or np_ % TOKEN_TILE:
         raise ValueError(f"{name}: x must be [Np, K] with Np a multiple of "
                          f"{TOKEN_TILE}, got {tuple(x.shape)}")
-    if isinstance(w, QTensor):
+    quantized = isinstance(w, QTensor)
+    if quantized:
         if w.data.dim() != 3 or w.scale.dim() != 3 or (
                 w.zero is not None and w.zero.dim() != 3):
             raise ValueError(f"{name}: w must be an [E, ...] stack of "
@@ -200,16 +205,28 @@ def _launch(x: torch.Tensor, w: Union[QTensor, torch.Tensor],
             np_, kp, n, block, kind, num_experts, data_es, scale_es, split,
             per, max_tile_rows, cw, stream)
     else:
-        split, per = split or _split_k("moe_dispatch", TOKEN_TILE, n, kp,
-                                       kind, 1, x2.device, tiles=ntiles)
-        ws = (torch.empty((split, np_, n), dtype=torch.float32,
-                          device=x2.device) if split > 1 else None)
+        # a quantized stack: the Hopper body, K split summed in the same
+        # launch; a dense stack: dequant_mma.cuh and its finalize kernel
+        geo = "moe_dispatch" if quantized else "moe_dispatch_dense"
+        split, per = split or _split_k(geo, TOKEN_TILE, n, kp, kind, 1,
+                                       x2.device, tiles=ntiles)
+        tma = tickets = None
+        if quantized:
+            planes = [data, scale] + ([] if w.zero is None else [w.zero])
+            tma = plane_loads(n, w.qtype, [p.data_ptr() for p in planes]
+                              + [data_es, 2 * scale_es])["codes"] == "tma"
+        shape = wgmma_workspace(split, np_, n)
+        ws = None if shape is None else torch.empty(
+            shape, dtype=torch.float32, device=x2.device)
+        if quantized and shape is not None:
+            tickets = ticket_buffer(x2.device,
+                                    ntiles * wgmma_strips(n)).data_ptr()
         err = _native.kernel("moe_dispatch")(
             x2.data_ptr(), data.data_ptr(), scale.data_ptr(), zero, lut,
             tile_expert.data_ptr(), tile_rows.data_ptr(),
-            None if ws is None else ws.data_ptr(), y.data_ptr(),
+            None if ws is None else ws.data_ptr(), tickets, y.data_ptr(),
             np_, kp, n, block, kind, num_experts, data_es, scale_es,
-            split, per, stream)
+            split, per, int(bool(tma)), stream)
     _native.check(name, err)
     LAUNCHES[name] += 1
     return y

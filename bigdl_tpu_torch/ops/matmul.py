@@ -41,6 +41,8 @@ from bigdl_tpu_torch.ops.cuda.dequant_matmul import (GEMV_MAX_M,
 from bigdl_tpu_torch.ops.quant import QTensor
 
 BACKENDS = ("auto", "xla", "xla_fused")
+# the torch.profiler range around the large-M dequantize-then-matmul path
+DEQUANT_THEN_MATMUL = "bigdl.dequant_then_matmul"
 
 
 def q_matmul(x: torch.Tensor, w: QTensor, *,
@@ -66,7 +68,10 @@ def q_matmul(x: torch.Tensor, w: QTensor, *,
     elif m <= f.matmul_max_m:
         y = dequant_gemm(x2, w, "i4" if w.is_int4 else "std")
     else:
-        y = plain_q_matmul(x2, w)
+        # a profiler range names the path's kernels (chip_smoke.py reads
+        # its device time)
+        with torch.profiler.record_function(DEQUANT_THEN_MATMUL):
+            y = plain_q_matmul(x2, w)
     return y.to(x.dtype).reshape(*batch, n)
 
 

@@ -16,10 +16,13 @@ Phases, all of them on every run, each printing one JSON line:
    TFLOP/s). Every dequant-matmul case launches twice and must repeat
    its bits (a K split sums in a fixed order). B1's std body runs at M 1,
    8, 16 and 32 on the five Llama-2-7B linears (the small-M body at 1, 2
-   and 4 n8 tiles of tokens). B6 takes the bound on a tile's real rows
-   that the MoE layer passes (min(N * k, 128)): its decode routings (2, 8
-   and 16 slots) run the small-M entry, its prefill routing the 8-m-tile
-   body. B5 must also equal B3 bit for bit on the same rows laid out
+   and 4 n8 tiles of tokens), B2's std and i4 bodies (the Hopper body of
+   dequant_wgmma.cuh) at M 33, 64, 100 and 128 on the same linears; timed
+   cases report ps a dequantized weight beside the times. B6 takes the
+   bound on a tile's real rows that the MoE layer passes (min(N * k,
+   128)): its decode routings (2, 8 and 16 slots) run the small-M entry,
+   its prefill routings (a skewed and a uniform 256-token chunk) the
+   Hopper body. B5 must also equal B3 bit for bit on the same rows laid out
    densely, and B6 each tile of B2 at B2's K split. B3, B4 and B5 run
    again over fp8_e5m2, int8 and int4 caches (codes and f32 scales; the
    yardstick dequantizes, then calls SDPA), timed at the main path's
@@ -28,9 +31,9 @@ Phases, all of them on every run, each printing one JSON line:
    timed on Llama-2-7B's gate_up (4096 x 22016) at M 8 (i4: 128) over the
    int4 layout (fold over the canonical sym_int4, nf4 and sym_int8, mxu8
    over sym_int8 too), and checked at the other m-tile counts; mxu (M 1,
-   8, 16, 32, timed on gate_up) and i4 (M 64, 128), the load path's
-   defaults, are also checked on each of the other four Llama-2-7B
-   linears.
+   8, 16, 32, timed on gate_up) and i4 (M 33, 64, 100, 128; 33 and 100
+   timed), the load path's defaults, are also checked on each of the
+   other four Llama-2-7B linears.
 4. reference: a 2-layer cut of the full-width model, prefill + one decode
    step on the card (kernels) against the same on the CPU (plain).
 5. engine: seeded full-width Llama-2-7B, sym_int4 linears, merged
@@ -41,6 +44,12 @@ Phases, all of them on every run, each printing one JSON line:
    of the same requests profiles a few pure-decode steps (device time by
    kernel group, launches, idle share, and the device time of dequant
    split-K sums, a second kernel no small-M launch needs).
+5b. prefill_profile: torch.profiler over one prefill of a 100-token
+   prompt (B2 takes its linears) through a fresh engine, after a warm-up
+   prefill: device time by kernel group, idle share, launches. Phase 15b
+   does the same for one 256-token Mixtral chunk (B6's prefill tiles, and
+   the dequantize-then-matmul path of the linears past 128 rows, read from
+   its profiler range).
 6. engine_paged: the same eight requests through the paged engine
    (kv_page_size 128, sharing off), then four requests sharing a
    1024-token prefix with radix sharing on: greedy and seeded streams must
@@ -87,6 +96,7 @@ Phases, all of them on every run, each printing one JSON line:
    serving Mixtral, twice: every request finishes, greedy and seeded
    streams repeat, B1-B4 and B6 launch, B6 in prefill and in decode; then
    a profiled decode window.
+15b. prefill_profile (Mixtral): see 5b.
 16. engine_moe_gather: four greedy requests at max_batch 4, so decode
    gathers the chosen experts (N * k = 8 <= E): streams repeat, and B1
    launches during decode-only steps while B6 does not.
@@ -144,7 +154,7 @@ KERNELS = {
         source="bigdl_tpu_torch/csrc/dequant_mxu8.cu",
         replaces="bigdl_tpu/ops/pallas/dequant_matmul.py:284"),
     "dequant_gemm_i4": dict(
-        source="bigdl_tpu_torch/csrc/dequant_variants.cu",
+        source="bigdl_tpu_torch/csrc/dequant_gemm.cu",
         replaces="bigdl_tpu/ops/pallas/dequant_matmul.py:133"),
     "decode_attention": dict(
         source="bigdl_tpu_torch/csrc/decode_attention.cu",
@@ -299,6 +309,9 @@ def _matmul_case(timer, name, x, w, kernel_fn, iters, plain_fn=None):
     if iters:
         dense = dequantize(w, torch.bfloat16)
         rec["ms"] = timer.ms(lambda: kernel_fn(x, w), iters)
+        # the time a dequantized weight takes, read the same way for B2
+        # and B6 (ps)
+        rec["ps_per_weight"] = rec["ms"] * 1e9 / (k * n)
         rec["plain_ms"] = timer.ms(lambda: plain_fn(x, w), iters)
         # library yardstick: dequantize to bf16, then one cuBLAS GEMM; and
         # the GEMM alone on the pre-dequantized weight (a dense bf16 layer)
@@ -509,6 +522,13 @@ def _prefill_routing(dev):
     return torch.tensor(topi, dtype=torch.int64, device=dev)
 
 
+def _uniform_routing(dev):
+    """A 256-token prefill chunk, top-2 of 8 experts, uniform: 64 choices
+    an expert (8 tiles of 64 rows); Np 1024."""
+    return torch.tensor([(i % 8, (i + 4) % 8) for i in range(256)],
+                        dtype=torch.int64, device=dev)
+
+
 def _decode_routing(gen, dev, n=8, e=8):
     """An n-slot decode step, top-2 of e experts at random; Np 1152."""
     return torch.stack([torch.randperm(e, generator=gen, device=dev)[:2]
@@ -630,6 +650,10 @@ def _ragged_case(timer, randn, routing, rname, lname, w, iters,
         rec["library"] = lib_name
         rec["library_max_abs_err"] = max_err(lib(dense)[real], want[real])
         rec["ms"] = timer.ms(b6, iters)
+        # per dequantized weight: every tile holding rows dequantizes its
+        # expert once
+        tiles = sum(1 for c in tr.tolist() if c)
+        rec["ps_per_weight"] = rec["ms"] * 1e9 / (tiles * k * n)
         rec["plain_ms"] = timer.ms(
             lambda: plain_ragged_expert_matmul(x, w, te), iters)
         rec["library_ms"] = timer.ms(lambda: lib(dequant_all()), iters)
@@ -652,14 +676,17 @@ def phase_kernels(timer):
         return torch.randn(shape, generator=gen, device=dev) * scale
 
     # B1 / B2 at the five Llama-2-7B linear shapes, sym_int4: B1 (the
-    # small-M body) at 1, 2 and 4 n8 tiles of tokens
+    # small-M body) at 1, 2 and 4 n8 tiles of tokens, B2 (the Hopper body)
+    # at both token widths, with ragged edges (33, 100)
     for lname, (k, n) in LLAMA2_7B_LINEARS.items():
         w = quantize(randn(k, n, scale=0.02), "sym_int4")
         for m, fn, kname in ((1, dequant_gemv, "dequant_gemv"),
                              (8, dequant_gemv, "dequant_gemv"),
                              (16, dequant_gemv, "dequant_gemv"),
                              (32, dequant_gemv, "dequant_gemv"),
+                             (33, dequant_gemm, "dequant_gemm"),
                              (64, dequant_gemm, "dequant_gemm"),
+                             (100, dequant_gemm, "dequant_gemm"),
                              (128, dequant_gemm, "dequant_gemm")):
             x = randn(m, k).to(torch.bfloat16)
             rec = _matmul_case(timer, kname, x, w, fn, iters=10)
@@ -736,16 +763,19 @@ def phase_kernels(timer):
         records.append(rec)
         emit({"phase": "kernels", **rec})
 
-    # B6 at Mixtral-8x7B's expert shapes, sym_int4, under a skewed
-    # prefill-chunk routing and a decode routing; the first case is also
-    # held tile by tile against B2
+    # B6 at Mixtral-8x7B's expert shapes, sym_int4, under a skewed and a
+    # uniform prefill-chunk routing (the Hopper body) and a decode routing
+    # (the small-M entry); the gate_up prefill cases are also held tile by
+    # tile against B2
     for lname, (k, n) in MIXTRAL_EXPERT_LINEARS.items():
         w = _stack_q(randn, 8, k, n, "sym_int4")
         for rname, routing in (("prefill", _prefill_routing(dev)),
+                               ("prefill_uniform", _uniform_routing(dev)),
                                ("decode", _decode_routing(gen, dev))):
             rec = _ragged_case(timer, randn, routing, rname, lname, w,
-                               iters=10, b2_check=(lname == "gate_up"
-                                                   and rname == "prefill"))
+                               iters=10, b2_check=(
+                                   lname == "gate_up"
+                                   and rname.startswith("prefill")))
             records.append(rec)
             emit({"phase": "kernels", **rec})
         del w
@@ -842,17 +872,18 @@ def _variant_cases(timer, randn):
               ("dequant_gemv_mxu8", gemv("mxu8"), dm.plain_q_matmul_q8))
     fold = ("dequant_gemv_fold", gemv("fold"), dm.plain_q_matmul_fused)
     # the load path's defaults (mxu decode, i4 prefill chunk) at every
-    # linear a prepacked Llama-2-7B runs them on, untimed: each linear's
-    # weight loads and split-K count differ from gate_up's
+    # linear a prepacked Llama-2-7B runs them on: each linear's weight
+    # loads and split-K count differ from gate_up's (i4 timed at the
+    # ragged rows 33 and 100)
     for lname, (k, n) in LLAMA2_7B_LINEARS.items():
         if lname == "gate_up_proj":
             continue
         wm = to_mxu_layout(quantize(randn(k, n, scale=0.02), "sym_int4"))
         for m in (1, 8, 16, 32):
             run(*bodies[0], wm, m, k, 0, linear=lname)
-        for m in (64, 128):
-            run("dequant_gemm_i4", i4, dm.plain_q_matmul, wm, m, k, 0,
-                linear=lname)
+        for m in (33, 64, 100, 128):
+            run("dequant_gemm_i4", i4, dm.plain_q_matmul, wm, m, k,
+                10 if m in (33, 100) else 0, linear=lname)
         del wm
     k, n = LLAMA2_7B_LINEARS["gate_up_proj"]
     for qtype in ("sym_int4", "nf4", "sym_int8"):
@@ -875,9 +906,9 @@ def _variant_cases(timer, randn):
             for body in bodies[1:] if m != 17 else bodies:
                 run(*body, wm, m, k, 0, linear="gate_up_proj")
             run(*fold, w, m, k, 0, linear="gate_up_proj")
-        for m in (40, 64):
-            run("dequant_gemm_i4", i4, dm.plain_q_matmul, wm, m, k, 0,
-                linear="gate_up_proj")
+        for m in (33, 40, 64, 100):
+            run("dequant_gemm_i4", i4, dm.plain_q_matmul, wm, m, k,
+                10 if m in (33, 100) else 0, linear="gate_up_proj")
         del wm
     # a K-padded shape and the one-word loads (N % 8 != 0), untimed
     for k, n in ((1000, 512), (640, 260)):
@@ -1052,13 +1083,16 @@ def _run_requests(eng, requests):
 def _kernel_group(name: str) -> str:
     for key, group in (("ragged_mma", "ragged_expert_matmul (B6)"),
                        ("smallm_ragged", "ragged_expert_matmul (B6)"),
+                       ("wgmma_ragged", "ragged_expert_matmul (B6)"),
+                       ("wgmma_gemm", "dequant_gemm (B2)"),
                        ("q8_mma", "dequant_gemv_mxu8 (B1)"),
-                       ("dequant_mma", "dequant_gemv/gemm (B1/B2)"),
-                       ("smallm_gemv", "dequant_gemv/gemm (B1/B2)"),
+                       ("dequant_mma", "dequant_gemv (B1)"),
+                       ("smallm_gemv", "dequant_gemv (B1)"),
                        ("finalize_kernel", "dequant split-K sum"),
                        ("decode_attention", "decode_attention (B3)"),
                        ("prefill_attention", "prefill_attention (B4)"),
-                       ("gemm", "torch matmul"), ("elementwise", "elementwise"),
+                       ("gemm", "torch matmul"), ("nvjet", "torch matmul"),
+                       ("elementwise", "elementwise"),
                        ("reduce", "reductions"), ("index", "cache writes"),
                        ("copy", "copies")):
         if key in name.lower():
@@ -1074,7 +1108,8 @@ def _device_ms_by_group(prof, steps):
 
     groups, launches = {}, 0
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        # a record_function range shows on the device too: not a kernel
+        if e.device_type != DeviceType.CUDA or e.key.startswith("bigdl."):
             continue
         us = (getattr(e, "self_device_time_total", 0)
               or getattr(e, "self_cuda_time_total", 0))
@@ -1132,6 +1167,88 @@ def _profile_decode(eng, requests, steps=4):
         for rid, _, _ in requests:
             eng.get_outputs(rid + "-prof")
     return out
+
+
+def phase_prefill_profile(params, cfg, family, model, prompt_len):
+    """torch.profiler over one prefill: a `prompt_len`-token prompt through
+    a fresh LLMEngine (max_batch 1) until its first token, after one
+    unprofiled warm-up prefill of the same length. Reports the device time
+    by kernel group (the dequantize-then-matmul path of linears past 128
+    rows read from its profiler range), the idle share, and the kernels'
+    launches. Returns the launch counts of the profiled prefill."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch.ops.cuda import launch_counts
+    from bigdl_tpu_torch.ops.matmul import DEQUANT_THEN_MATMUL
+    from bigdl_tpu_torch.serving.engine import (EngineConfig, LLMEngine,
+                                                SamplingParams)
+    from bigdl_tpu_torch.utils.testing import SyntheticCausalLM
+
+    model_obj = (SyntheticCausalLM(params, cfg) if family is None else
+                 SyntheticCausalLM(params, cfg, family=family))
+    eng = LLMEngine(model_obj, EngineConfig(max_batch=1, max_seq=2048),
+                    device="cuda")
+    prompt = np.random.default_rng(13).integers(
+        0, cfg.vocab_size, prompt_len).tolist()
+
+    def prefill(rid):
+        eng.add_request(rid, prompt, SamplingParams(max_tokens=1))
+        steps, first = 0, False
+        while not first:
+            eng.step()
+            steps += 1
+            first = any(o.new_token_ids for o in eng.get_outputs(rid))
+            require(steps < 64, f"prefill_profile: {rid} gave no token")
+        while eng.has_unfinished():
+            eng.step()
+        return steps
+
+    prefill("warm-up")
+    torch.cuda.synchronize()
+    out = {"phase": "prefill_profile", "model": model,
+           "prompt_tokens": prompt_len}
+    before = launch_counts()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.__enter__()
+    except (RuntimeError, AttributeError) as e:   # profiler unavailable
+        prof = None
+        out["device_ms"] = f"not measured: {e}"
+    t0 = time.perf_counter()
+    out["steps"] = prefill("profiled")
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    counts = {k: v - before[k] for k, v in launch_counts().items()
+              if v != before[k]}
+    out.update(wall_ms=wall_ms, kernel_launches_by_counter=counts)
+    if prof is not None:
+        prof.__exit__(None, None, None)
+        try:
+            groups, launches = _device_ms_by_group(prof, 1)
+            dtm = [e for e in prof.key_averages()
+                   if e.key == DEQUANT_THEN_MATMUL
+                   and e.device_type == DeviceType.CPU]
+        except (RuntimeError, AttributeError) as e:
+            groups, out["device_ms"] = {}, f"not measured: {e}"
+        if groups:
+            dev = sum(groups.values())
+            out.update(device_ms=dev,
+                       device_idle_share=max(0.0, 1.0 - dev / wall_ms),
+                       kernel_launches=launches,
+                       device_ms_by_group=dict(sorted(
+                           groups.items(), key=lambda kv: -kv[1])))
+            if dtm:
+                out["dequant_then_matmul"] = {
+                    "calls": dtm[0].count,
+                    "device_ms": (getattr(dtm[0], "device_time_total", 0)
+                                  or getattr(dtm[0], "cuda_time_total", 0))
+                    / 1e3}
+    emit(out)
+    want = "dequant_gemm" if family is None else "ragged_expert_matmul"
+    require(counts.get(want, 0) > 0,
+            f"prefill_profile: {want} never launched in {model}'s prefill")
+    return counts
 
 
 def _engine_requests(cfg, max_new):
@@ -1860,11 +1977,12 @@ def summary(records, counts):
             r.get(k) == v for k, v in rep[name].items()))
         extra = {}
         if name == "ragged_expert_matmul":
-            dec = next(r for r in mine if "ms" in r and r.get("linear") ==
-                       "gate_up" and r.get("routing") == "decode")
-            extra["decode"] = {k: dec[k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "entry", "max_abs_err")}
+            for routing in ("decode", "prefill_uniform"):
+                other = next(r for r in mine if "ms" in r and r.get(
+                    "linear") == "gate_up" and r.get("routing") == routing)
+                extra[routing] = {k: other[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "entry", "max_abs_err", "ps_per_weight")}
         out.append({"name": name, "route": "cuda", **meta, **extra,
                     "launches": int(counts.get(name, 0)),
                     "max_abs_err": max(r["max_abs_err"] for r in mine),
@@ -1872,8 +1990,8 @@ def summary(records, counts):
                     "bound_ms": main["bound_ms"],
                     "bound_by": main["bound_by"],
                     "library_ms": main["library_ms"],
-                    **{k: main[k] for k in ("matmul_only_ms", "b3_ms")
-                       if k in main},
+                    **{k: main[k] for k in ("matmul_only_ms", "b3_ms",
+                                            "ps_per_weight") if k in main},
                     "case": {k: main[k] for k in main if k in (
                         "kv", "qtype", "layout", "M", "K", "N", "B", "H",
                         "Hkv", "hd", "S", "Sq",
@@ -1905,7 +2023,8 @@ def main() -> int:
         phase_reference(params, cfg)
         counts, slab_toks, slab_shared, slab_peak = phase_engine(params, cfg)
         # main-path launches: each path's run, counted from 0
-        more = [phase_engine_paged(params, cfg, slab_toks, slab_shared),
+        more = [phase_prefill_profile(params, cfg, None, "llama2-7b", 100),
+                phase_engine_paged(params, cfg, slab_toks, slab_shared),
                 phase_prefix_burst(params, cfg)]
         for kind in ("int8", "int4"):
             phase_reference(params, cfg, kind)
@@ -1921,7 +2040,10 @@ def main() -> int:
 
         moe_params, moe_cfg = phase_model_moe()
         phase_reference_moe(moe_params, moe_cfg)
+        from bigdl_tpu_torch.models import mixtral
         more += [phase_engine_moe(moe_params, moe_cfg),
+                 phase_prefill_profile(moe_params, moe_cfg, mixtral,
+                                       "mixtral-8x7b", 256),
                  phase_engine_moe_gather(moe_params, moe_cfg)]
         for m in more:
             for k, v in m.items():

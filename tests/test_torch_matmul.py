@@ -179,8 +179,9 @@ def test_plain_version_is_bf16_weights_f32_sum():
     ("dequant_gemm", 128, 4096, 32000, 2), ("dequant_gemm", 64, 4096, 12288,
                                              3)])
 def test_split_k_fills_one_wave(monkeypatch, name, m, k, n, occ):
-    """The K split puts at most one wave of resident blocks on the card,
-    covers every 64-row chunk, and leaves no split empty."""
+    """The K split covers every 64-row chunk and leaves no split empty. B1
+    (the small-M body) takes the fewest waves a split, B2 (the Hopper
+    body) one wave of resident blocks; both sum it in one launch."""
     sms = 132
     monkeypatch.setattr(dm, "_sm_count", lambda device: sms)
     monkeypatch.setattr(dm, "_occupancy", {})
@@ -189,13 +190,14 @@ def test_split_k_fills_one_wave(monkeypatch, name, m, k, n, occ):
     # words a thread, columns a block and splits: B1 std runs the small-M
     # body (16-byte loads at M <= 16, 8-byte above; a strip of 32 cw
     # columns a block; the split with the fewest waves a split), B2 the
-    # 4-warp dequant_mma body (one wave)
+    # Hopper body (256-column strips, one wave, at most 5 splits: lm_head's
+    # 125 strips take 2 on 264 slots, qkv's 48 5 on 396)
     cw, cols, want = {("dequant_gemv", 8, 22016): (4, 128, 3),
                       ("dequant_gemv", 1, 4096): (4, 128, 8),
                       ("dequant_gemv", 20, 4096): (2, 64, 4),
                       ("dequant_gemv", 8, 260): (1, 32, 1),
-                      ("dequant_gemm", 128, 32000): (1, 128, None),
-                      ("dequant_gemm", 64, 12288): (1, 128, None)}[
+                      ("dequant_gemm", 128, 32000): (1, 256, 2),
+                      ("dequant_gemm", 64, 12288): (1, 256, 5)}[
                           (name, m, n)]
     assert dm._cw(name, n, m) == cw
     assert dm._block_cols(name, cw) == cols
@@ -203,12 +205,9 @@ def test_split_k_fills_one_wave(monkeypatch, name, m, k, n, occ):
     chunks = -(-k // 64)
     blocks_n = -(-n // cols)
     assert (split - 1) * per < chunks <= split * per
-    if want is not None:
-        assert split == want
-        return
-    assert split == 1 or blocks_n * split <= occ * sms
-    # as few chunks per block as one wave allows
-    assert per == -(-chunks // max(1, min(chunks, occ * sms // blocks_n)))
+    assert split == want
+    rule = dm.wgmma_split if name == "dequant_gemm" else dm._balanced_split
+    assert split == rule(blocks_n, occ * sms, chunks)
 
 
 # -- the int4-layout and scale-folded bodies -----------------------------------
@@ -314,7 +313,7 @@ def test_gemv_body_plain_versions_match_pallas_interpret(
     np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("m", [64, 128])
+@pytest.mark.parametrize("m", [64, 100, 128])
 def test_gemm_i4_plain_version_matches_pallas_interpret(m):
     k, n = 512, 256
     jw, tw = _pair_layout(k, n, "sym_int4", "int4", seed=26)
@@ -426,7 +425,9 @@ def test_variant_words_and_split(monkeypatch, name, m, n, cw):
     """Words a thread loads per packed row for each body, and the K split
     from the occupancy query of the body's own library. mxu runs the
     small-M body: 16-byte loads at M <= 16, 8-byte above (the id's cw is
-    the dequant_mma body's: 2 at M 8, 1 at M 20)."""
+    the dequant_mma body's: 2 at M 8, 1 at M 20). i4 runs B2's Hopper
+    body: its library's query takes (M, kind), and the split is one wave
+    of its 256-column strips."""
     cw = {("dequant_gemv_mxu", 8, 22016): 4,
           ("dequant_gemv_mxu", 20, 22016): 2}.get((name, m, n), cw)
     assert dm._cw(name, n, m) == cw
@@ -444,6 +445,11 @@ def test_variant_words_and_split(monkeypatch, name, m, n, cw):
                              torch.device("cpu"))
     assert (split - 1) * per < 64 <= split * per
     lib, sym, args = calls[0]
+    assert sym.endswith("_blocks_per_sm")
+    if name == "dequant_gemm_i4":
+        assert lib == "dequant_gemm" and args == (m, dm._KIND_I4)
+        assert split == dm.wgmma_split(dm.wgmma_strips(n), 2 * 132, 64)
+        return
     assert lib == ("dequant_mxu8" if name.endswith("mxu8")
                    else "dequant_variants")
-    assert sym.endswith("_blocks_per_sm") and args[-2:] == (dm._KIND_I4, cw)
+    assert args[-2:] == (dm._KIND_I4, cw)
