@@ -53,13 +53,14 @@ SIGNATURES = {
         "bigdl_dequant_mxu8": [_c_void_p] * 6 + [_c_int] * 7 + [_c_void_p],
         "bigdl_dequant_mxu8_blocks_per_sm": [_c_int] * 3},
     "decode_attention": {
-        "bigdl_decode_attention": [_c_void_p] * 8 + [_c_int] * 6
-        + [_c_float, _c_void_p]},
+        "bigdl_decode_attention": [_c_void_p] * 9 + [_c_int] * 7
+        + [_c_float, _c_void_p],
+        "bigdl_decode_attention_blocks_per_sm": [_c_int] * 3},
     "prefill_attention": {
         "bigdl_prefill_attention": [_c_void_p] * 7 + [_c_int] * 7
         + [_c_float, _c_void_p]},
     "paged_decode_attention": {
-        "bigdl_paged_decode_attention": [_c_void_p] * 9 + [_c_int] * 8
+        "bigdl_paged_decode_attention": [_c_void_p] * 10 + [_c_int] * 9
         + [_c_float, _c_void_p]},
     "moe_dispatch": {
         "bigdl_ragged_expert_matmul": [_c_void_p] * 10 + [_c_int] * 6
@@ -155,8 +156,9 @@ def kernel(name: str, symbol: Optional[str] = None):
     return fn
 
 
-# error codes of the Hopper GEMM's entry points beyond cudaError_t's
-# (dqwg::kEncodeError, dqwg::kNoEncoder in csrc/dequant_wgmma.cuh)
+# error codes of the entry points that encode TMA tensor maps (the Hopper
+# GEMM, the decode attention body) beyond cudaError_t's (kEncodeError,
+# kNoEncoder in csrc/tma.cuh)
 ENCODE_ERROR = 10000
 NO_ENCODER = 20000
 

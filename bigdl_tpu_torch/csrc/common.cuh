@@ -1,6 +1,6 @@
 // Shared helpers for the hand-written Hopper kernels of bigdl_tpu_torch:
-// bf16 bit conversions and the PTX wrappers (ldmatrix, mma.sync, cp.async)
-// of the tensor-core kernels.
+// bf16 bit conversions and the PTX wrappers (lop3, bf16x2 fma, ldmatrix,
+// mma.sync, cp.async) of the tensor-core kernels.
 //
 // Every kernel library is built by nvcc into its own shared object with a
 // plain C interface (see bigdl_tpu_torch/_native.py) and takes raw device
@@ -38,6 +38,26 @@ __device__ __forceinline__ float round_bf16(float f) {
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
     uint32_t d;
     asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(hi), "f"(lo));
+    return d;
+}
+
+// d = a * b + c on bf16 pairs, rounded once
+__device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b,
+                                               uint32_t c) {
+    uint32_t d;
+    asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+    return d;
+}
+
+// one three-input bitwise op, LUT over (a, b, c) = (0xF0, 0xCC, 0xAA):
+// 0xEA is (a & b) | c, 0x6A (a & b) ^ c. With two constant operands the
+// compiler splits such an expression into two LOP3s (an instruction holds
+// one immediate); here the constants sit in registers.
+template <int LUT>
+__device__ __forceinline__ uint32_t lop3(uint32_t a, uint32_t b, uint32_t c) {
+    uint32_t d;
+    asm("lop3.b32 %0, %1, %2, %3, %4;"
+        : "=r"(d) : "r"(a), "r"(b), "r"(c), "n"(LUT));
     return d;
 }
 
@@ -82,6 +102,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
     const uint32_t addr = (uint32_t)__cvta_generic_to_shared(dst);
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+                 :: "r"(addr), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// cp.async of 4 bytes into shared memory (cached in L1: a scale column
+// shares its sectors with other heads); src_bytes 0 writes zeros
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+    const uint32_t addr = (uint32_t)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
                  :: "r"(addr), "l"(src), "r"(src_bytes) : "memory");
 }
 

@@ -17,7 +17,7 @@
 
 #include "dequant_wgmma.cuh"
 
-// Returns 0 or an error code (a cudaError_t; dqwg::kEncodeError + CUresult
+// Returns 0 or an error code (a cudaError_t; kEncodeError + CUresult
 // for a tensor map that failed to encode). ws holds split * M * N floats and
 // tickets at least ceil(N / 128) zeroed counters when split > 1 (else both
 // may be null); y is bf16 [M, N]; K is cut into chunks of 64,

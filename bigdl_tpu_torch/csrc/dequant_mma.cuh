@@ -95,25 +95,6 @@ constexpr int kChunk = 64;               // K per staged x chunk
 constexpr int kLd = kChunk + 8;          // xs row stride: 144 B, no ldmatrix
                                          // bank conflicts
 
-__device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b,
-                                               uint32_t c) {
-    uint32_t d;
-    asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-    return d;
-}
-
-// one three-input bitwise op, LUT over (a, b, c) = (0xF0, 0xCC, 0xAA):
-// 0xEA is (a & b) | c, 0x6A (a & b) ^ c. With two constant operands the
-// compiler splits such an expression into two LOP3s (an instruction holds
-// one immediate); here the constants sit in registers.
-template <int LUT>
-__device__ __forceinline__ uint32_t lop3(uint32_t a, uint32_t b, uint32_t c) {
-    uint32_t d;
-    asm("lop3.b32 %0, %1, %2, %3, %4;"
-        : "=r"(d) : "r"(a), "r"(b), "r"(c), "n"(LUT));
-    return d;
-}
-
 // exact small integer -> f32 without an int-to-float conversion
 __device__ __forceinline__ float code_f32(uint32_t c) {
     return __uint_as_float(0x4B000000u | c) - 8388608.f;

@@ -38,7 +38,7 @@
 // 16-byte-load weight tiles, and writes the tile's other rows as zeros.
 #include "dequant_wgmma.cuh"
 
-// Returns 0 or an error code (a cudaError_t, or dqwg::kEncodeError +
+// Returns 0 or an error code (a cudaError_t, or kEncodeError +
 // CUresult for a tensor map that failed to encode). x is bf16 [Np, Kp] with
 // Np a multiple of 128; data/scale/zero are the expert-0 planes of an
 // [E, ...] stack whose matrices lie data_es bytes and scale_es scale

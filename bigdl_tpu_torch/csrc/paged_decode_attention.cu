@@ -10,22 +10,22 @@
 //
 // The TPU kernel DMAs page bt[b, t] into VMEM through a scalar-prefetched
 // index map, one page per sequential grid step. Hopper has no scalar
-// prefetch and its blocks run in parallel: here each block of B3's split-S
-// pass (decode_attention.cuh; 256 logical keys, two pages at ps = 128, part
-// of one at ps >= 256) loads its own page ids from the table and reads key
-// j from arena row bt[b, j / ps] * ps + j % ps (codes and scales). A thread
-// keeps its current page id in a register and reads the table again only
-// when its keys cross into the next page (once per ps keys, not per key).
-// Everything else is B3's body, so B5 is bit-identical to B3 over the same
-// rows laid out densely, for every storage kind (the promise of
-// bigdl_tpu/ops/paged.py: paged decode equals slab decode byte for byte).
+// prefetch and its blocks run in parallel: here each warp of B3's body
+// (decode_attention.cuh) reads the page id of each 16-key tile it stages
+// from the table (a tile never crosses a page: ps is a multiple of 16) and
+// asks TMA for the tile's rows at arena row bt[b, j / ps] * ps + j % ps
+// (the scales by cp.async from the same rows). Everything else is B3's
+// body and plan, so B5 is bit-identical to B3 over the same rows laid out
+// densely, for every storage kind (the promise of bigdl_tpu/ops/paged.py:
+// paged decode equals slab decode byte for byte).
 //
 // Bound on the H100: bytes, the visible K/V rows' codes and scales,
 // sum_b min(pos[b] + 1, NP * ps) * Hkv * (hd * bytes_per_code + scale
 // bytes) * 2, plus q, out and the table. The walk stops at
 // min(pos + 1, NP * ps): an idle slot (all-null table row, pos past
-// NP * ps) never indexes past column NP - 1, and the null page's garbage
-// rows are read only where the mask covers them.
+// NP * ps) never indexes past column NP - 1; rows past pos inside a tile
+// (the tail of its last page, or the null page's) arrive with the box and
+// weigh nothing (their V rows are zeroed, their scales copied as zeros).
 #include "decode_attention.cuh"
 
 namespace {
@@ -33,39 +33,36 @@ namespace {
 struct PagedRows {
     const int* bt;    // [B, NP]
     int np;
-    int ps;           // a multiple of 4 (the gate asks for 128)
-    int lp;           // this thread's cached logical page (-1: none)
-    int base;         // its first row, bt[b, lp] * ps
+    int ps;           // a multiple of 16 (the gate asks for 128)
 
-    __device__ __forceinline__ unsigned row(int b, int j) {
+    __device__ __forceinline__ unsigned row(int b, int j) const {
         const int l = j / ps;
-        if (l != lp) {              // warp-uniform: one read per page
-            lp = l;
-            base = __ldg(bt + b * np + l) * ps;
-        }
-        return (unsigned)(base + j - l * ps);
+        return (unsigned)(__ldg(bt + b * np + l) * ps + (j - l * ps));
     }
 };
 
 }  // namespace
 
-// Returns the cudaError_t of the launches (0 on success). kind is a KvKind
+// Returns the cudaError_t of the launch (0 on success) or an error code of
+// csrc/tma.cuh (a tensor map that did not encode). kind is a KvKind
 // (kv_storage.cuh); ks/vs are the arena's scale planes for int8/int4 (may
-// be null otherwise). ws holds B * H * P * (hd + 2) floats,
-// P = ceil(NP * ps / 256) * 4 partials per head (sized from the table, not
-// the arena).
+// be null otherwise). span and the workspace as bigdl_decode_attention's
+// over S = NP * ps logical keys (sized from the table, not the arena).
 extern "C" int bigdl_paged_decode_attention(const void* q, const void* k,
                                             const void* v, const void* ks,
                                             const void* vs, const void* bt,
                                             const void* pos, void* out,
-                                            void* ws, int B, int P, int ps,
-                                            int NP, int H, int Hkv, int hd,
-                                            int kind, float scale,
+                                            void* ws, void* tickets, int B,
+                                            int P, int ps, int NP, int H,
+                                            int Hkv, int hd, int kind,
+                                            int span, float scale,
                                             void* stream) {
-    if (P < 1 || ps < 4 || ps % 4 != 0 || NP < 1) {
+    if (P < 1 || ps < 16 || ps % 16 != 0 || NP < 1) {
         return (int)cudaErrorInvalidValue;
     }
-    const PagedRows rows{(const int*)bt, NP, ps, -1, 0};
-    return launch_decode_attention(rows, q, k, v, ks, vs, pos, out, ws, B,
-                                   NP * ps, H, Hkv, hd, kind, scale, stream);
+    const PagedRows rows{(const int*)bt, NP, ps};
+    return dattn::launch_decode_attention(rows, (long long)P * ps, q, k, v,
+                                          ks, vs, pos, out, ws, tickets, B,
+                                          NP * ps, H, Hkv, hd, kind, span,
+                                          scale, stream);
 }

@@ -8,31 +8,48 @@ Source: ``csrc/decode_attention.cu``, whose body
 
 The cache may hold any storage kind of ``ops/kvcache.py``: bf16,
 float8_e5m2 codes (upcast exactly), or int8 / packed int4 codes with f32
-scales [B, S, Hkv] (dequantized as ``_dequant_rows`` does: code to f32,
-times its scale in f32, rounded to bf16 before any dot). Each kind has
-its own launch counter: ``decode_attention`` (bf16) and
-``decode_attention_<kind>``.
+scales [B, S, Hkv]. The plain version dequantizes as ``_dequant_rows``
+does (code to f32, times its scale in f32, rounded to bf16 before any
+dot); the kernel folds the scales out of the products instead (the
+score's scale times the exact codes' dot, and the probability times the
+V scale before its bf16 rounding). Each kind has its own launch counter:
+``decode_attention`` (bf16) and ``decode_attention_<kind>``.
+
+One launch a call: ``plan_spans`` cuts the keys into spans so the
+(slot, kv head, span) blocks cover the card, and the last span of a
+(slot, kv head) to finish merges the others' partials in the same launch
+(a workspace and a ticket buffer, see ``csrc/decode_attention.cuh``). B5
+plans with the same function and occupancy, so it cuts the keys as B3
+does.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from bigdl_tpu_torch import _native
 from bigdl_tpu_torch.ops.cuda import LAUNCHES
+from bigdl_tpu_torch.ops.cuda.dequant_matmul import _sm_count, ticket_buffer
 from bigdl_tpu_torch.ops.kvcache import SCALED_KV_DTYPES, dequantize_kv
 
 # the kernels' limits: query heads per kv head and head dims
 MAX_GROUP = 16
 MAX_HEAD_DIM = 256
-# the decode kernel is built for these (group size, 128-wide head-dim
-# slices) pairs: its per-lane query rows and accumulators live in registers
+# the (group size, 128-wide head-dim slices) pairs the gate sends to the
+# decode kernel, which builds every group up to 8 at hd 64-256 and up to 16
+# at hd 64-128 (its query rows and accumulators live in registers)
 _DECODE_BUILT = {(1, 1), (2, 1), (4, 1), (8, 1), (16, 1),
                  (1, 2), (2, 2), (4, 2), (8, 2)}
-# keys per block of the decode kernel (kSpan in csrc/decode_attention.cuh)
-_SPAN = 256
+# keys a warp of the decode body stages and multiplies at once, and warps
+# a block (kTile, kWarps in csrc/decode_attention.cuh)
+TILE = 16
+WARPS = 4
+# blocks a (slot, kv head), at most (kMaxSpans)
+MAX_SPANS = 64
+
+_occupancy: Dict[tuple, int] = {}
 # code storage the kernels read -> (kind name, KvKind of csrc/kv_storage.cuh)
 KV_KINDS = {torch.bfloat16: ("bf16", 0), torch.float8_e5m2: ("fp8_e5m2", 1),
             torch.int8: ("int8", 2), torch.uint8: ("int4", 3)}
@@ -92,6 +109,64 @@ def check_kv_operands(fn: str, hd: int, k: torch.Tensor, v: torch.Tensor,
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def plan_spans(b: int, hkv: int, s: int, sms: int,
+               slots: int) -> Tuple[int, int]:
+    """(span, nspan) of a decode launch over `s` keys per slot: keys a
+    block takes at a full cache (a multiple of ``TILE``) and blocks a
+    (slot, kv head). The fewest blocks that put one on each of the `sms`
+    SMs and all of them resident at once (`slots`, one wave), each with at
+    least one tile a warp and at most ``MAX_SPANS`` a (slot, kv head),
+    where the keys allow; a span never exceeds the keys. A block costs a
+    few microseconds beyond its keys (the positions, the merges), so more
+    blocks ran slower (tools/bench_attention.py sweeps the spans). On the
+    card each slot's visible keys are cut evenly over its nspan blocks,
+    again in whole tiles (the positions stay on the card), so a B5 tile
+    never crosses a page, whose size is a multiple of ``TILE``."""
+    tiles = -(-s // TILE)
+    pairs = b * hkv
+    want = max(1, min(-(-sms // pairs), slots // pairs))
+    span_tiles = min(tiles, max(WARPS, -(-tiles // MAX_SPANS),
+                                tiles // want))
+    span = span_tiles * TILE
+    return span, -(-s // span)
+
+
+def decode_plan(b: int, hkv: int, s: int, kind: int, hd: int, group: int,
+                device: torch.device) -> Tuple[int, int]:
+    """``plan_spans`` on this card: its SMs and the decode body's resident
+    blocks (the occupancy from B3's library, which B5's plan reads too, so
+    both cut the keys alike)."""
+    key = (kind, hd, group, device.index)
+    occ = _occupancy.get(key)
+    if occ is None:
+        occ = _native.kernel("decode_attention",
+                             "bigdl_decode_attention_blocks_per_sm")(
+                                 kind, hd, group)
+        if occ <= 0:
+            raise RuntimeError(f"decode_attention: no body for kind {kind} "
+                               f"hd {hd} group {group}")
+        _occupancy[key] = occ
+    sms = _sm_count(device)
+    return plan_spans(b, hkv, s, sms, occ * sms)
+
+
+def decode_buffers(b: int, h: int, hkv: int, hd: int, nspan: int,
+                   device: torch.device):
+    """(workspace, tickets) of a launch with `nspan` spans: the f32
+    partials (m, l, acc[hd]) of every (slot, head, span) and one ticket a
+    (slot, kv head); None for both with one span (each block writes its
+    rows itself)."""
+    if nspan == 1:
+        return None, None
+    ws = torch.empty((b * h * nspan * (hd + 2),), dtype=torch.float32,
+                     device=device)
+    return ws, ticket_buffer(device, b * hkv)
 
 
 def _positions(pos, b: int, device) -> torch.Tensor:
@@ -172,24 +247,47 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.dim() != 4 or k.shape[0] != b:
         raise ValueError(f"decode_attention: cache shape {tuple(k.shape)} "
                          f"does not fit q {tuple(q.shape)}")
-    kind = check_kv_operands("decode_attention", hd, k, v, k_scale, v_scale)
+    check_kv_operands("decode_attention", hd, k, v, k_scale, v_scale)
     if not decode_attention_supported(q, k, k_scale):
         raise ValueError(
             f"decode_attention: unsupported geometry H={h} Hkv={k.shape[2]} "
             f"hd={hd} S={k.shape[1]} dtype={k.dtype}")
     if q.dtype != torch.bfloat16 or not q.is_contiguous():
         raise ValueError("decode_attention: q must be contiguous bfloat16")
-    pos = _positions(q_pos, b, q.device)
+    check_aligned("decode_attention", k, v)
+    return _launch(q, k, v, _positions(q_pos, b, q.device), scale, k_scale,
+                   v_scale)
+
+
+def check_aligned(fn: str, k: torch.Tensor, v: torch.Tensor) -> None:
+    """TMA reads the code planes: their base must be 16-byte aligned."""
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"{fn}: k/v codes must start on a 16-byte "
+                         "boundary")
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            pos: torch.Tensor, scale: float,
+            k_scale: Optional[torch.Tensor],
+            v_scale: Optional[torch.Tensor],
+            span: Optional[int] = None) -> torch.Tensor:
+    """One B3 launch on checked operands (pos int32 [B]); `span` overrides
+    the plan (tools/bench_attention.py sweeps it)."""
+    b, _, h, hd = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    kind = KV_KINDS[k.dtype][1]
+    if span is None:
+        span, nspan = decode_plan(b, hkv, s, kind, hd, h // hkv, q.device)
+    else:
+        nspan = -(-s // span)
     out = torch.empty_like(q)
-    # per (slot, head): P partial (m, l, acc[hd]) of the split-S pass
-    parts = -(-k.shape[1] // _SPAN) * 4
-    ws = torch.empty((b * h * parts * (hd + 2),), dtype=torch.float32,
-                     device=q.device)
+    # the workspace stays referenced until the launch is queued
+    ws, tickets = decode_buffers(b, h, hkv, hd, nspan, q.device)
     err = _native.kernel("decode_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
-        _ptr(v_scale), pos.data_ptr(), out.data_ptr(), ws.data_ptr(), b,
-        k.shape[1], h, k.shape[2], hd, kind, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _ptr(v_scale), pos.data_ptr(), out.data_ptr(), _ptr(ws),
+        _ptr(tickets), b, s, h, hkv, hd, kind, span, float(scale),
+        _stream(q.device))
     _native.check("decode_attention", err)
     LAUNCHES[counter("decode_attention", kv_kind(k))] += 1
     return out

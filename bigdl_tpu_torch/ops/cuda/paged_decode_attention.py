@@ -4,8 +4,10 @@ Counterpart of ``bigdl_tpu/ops/pallas/paged_decode_attention.py``
 (``paged_decode_attention_pallas``: ``_paged_kernel`` with bf16 or
 float8_e5m2 pages, ``_paged_kernel_scaled`` with int8/int4 pages and
 their f32 scale planes). Source: ``csrc/paged_decode_attention.cu``,
-which shares B3's body (``csrc/decode_attention.cuh``) and differs only
-in the row address. Each storage kind has its own launch counter.
+which shares B3's body (``csrc/decode_attention.cuh``) and B3's plan
+(``plan_spans`` over the table's NP * ps keys, with B3's occupancy) and
+differs only in the row address, so it gives B3's bits on the same rows.
+One launch a call. Each storage kind has its own launch counter.
 """
 
 from __future__ import annotations
@@ -17,11 +19,15 @@ import torch
 from bigdl_tpu_torch import _native
 from bigdl_tpu_torch.ops.cuda import LAUNCHES
 from bigdl_tpu_torch.ops.cuda.decode_attention import (_DECODE_BUILT,
-                                                       MAX_GROUP,
-                                                       MAX_HEAD_DIM, _SPAN,
+                                                       KV_KINDS, MAX_GROUP,
+                                                       MAX_HEAD_DIM,
                                                        _positions, _ptr,
+                                                       _stream,
+                                                       check_aligned,
                                                        check_kv_operands,
                                                        counter,
+                                                       decode_buffers,
+                                                       decode_plan,
                                                        kv_kind,
                                                        kv_operands_ok,
                                                        plain_attention)
@@ -91,8 +97,8 @@ def paged_decode_attention(q: torch.Tensor, arena_k: torch.Tensor,
         raise ValueError(f"paged_decode_attention: arena shape "
                          f"{tuple(arena_k.shape)} does not fit q "
                          f"{tuple(q.shape)}")
-    kind = check_kv_operands("paged_decode_attention", hd, arena_k, arena_v,
-                             k_scale, v_scale)
+    check_kv_operands("paged_decode_attention", hd, arena_k, arena_v,
+                      k_scale, v_scale)
     if block_tables.dim() != 2 or block_tables.shape[0] != b \
             or block_tables.dtype != torch.int32 \
             or not block_tables.is_contiguous():
@@ -107,20 +113,35 @@ def paged_decode_attention(q: torch.Tensor, arena_k: torch.Tensor,
     if q.dtype != torch.bfloat16 or not q.is_contiguous():
         raise ValueError("paged_decode_attention: q must be contiguous "
                          "bfloat16")
-    p_, ps = arena_k.shape[0], arena_k.shape[1]
+    check_aligned("paged_decode_attention", arena_k, arena_v)
+    return _launch(q, arena_k, arena_v, block_tables,
+                   _positions(q_pos, b, dev), scale, k_scale, v_scale)
+
+
+def _launch(q: torch.Tensor, arena_k: torch.Tensor, arena_v: torch.Tensor,
+            block_tables: torch.Tensor, pos: torch.Tensor, scale: float,
+            k_scale: Optional[torch.Tensor],
+            v_scale: Optional[torch.Tensor],
+            span: Optional[int] = None) -> torch.Tensor:
+    """One B5 launch on checked operands (pos int32 [B]), planned as B3
+    plans S = NP * ps keys; `span` overrides the plan."""
+    b, _, h, hd = q.shape
+    p_, ps, hkv = arena_k.shape[0], arena_k.shape[1], arena_k.shape[2]
     np_ = block_tables.shape[1]
-    pos = _positions(q_pos, b, dev)
+    kind = KV_KINDS[arena_k.dtype][1]
+    if span is None:
+        span, nspan = decode_plan(b, hkv, np_ * ps, kind, hd, h // hkv,
+                                  q.device)
+    else:
+        nspan = -(-(np_ * ps) // span)
     out = torch.empty_like(q)
-    # per (slot, head): the split-S partials (m, l, acc[hd]) over the
-    # table's NP * ps logical keys
-    parts = -(-(np_ * ps) // _SPAN) * 4
-    ws = torch.empty((b * h * parts * (hd + 2),), dtype=torch.float32,
-                     device=dev)
+    # the workspace stays referenced until the launch is queued
+    ws, tickets = decode_buffers(b, h, hkv, hd, nspan, q.device)
     err = _native.kernel("paged_decode_attention")(
         q.data_ptr(), arena_k.data_ptr(), arena_v.data_ptr(), _ptr(k_scale),
         _ptr(v_scale), block_tables.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), b, p_, ps, np_, h, arena_k.shape[2],
-        hd, kind, float(scale), torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), _ptr(ws), _ptr(tickets), b, p_, ps, np_, h, hkv, hd,
+        kind, span, float(scale), _stream(q.device))
     _native.check("paged_decode_attention", err)
     LAUNCHES[counter("paged_decode_attention", kv_kind(arena_k))] += 1
     return out

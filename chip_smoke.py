@@ -407,15 +407,19 @@ def _attn_case(timer, randn, name, b, sq, h, hkv, hd, s, pos_list, timed,
                        dtype=torch.int32, device=q.device)
     scale = hd ** -0.5
     got = fn(q, kc, vc, pos, scale, ks, vs)
+    again = fn(q, kc, vc, pos, scale, ks, vs)
     want = plain_attention(q, kc, vc, pos, scale, ks, vs)
     torch.cuda.synchronize()
+    # the decode body merges its spans in a fixed order: the bits repeat
+    repeats = bool(torch.equal(got, again))
     b_ms, b_by = _attn_bounds(q, kc, pos_list * (b // len(pos_list)), sq,
                               kind)
     rec = {"kernel": counter(name, kind), "kv": kind, "B": b, "Sq": sq,
            "H": h, "Hkv": hkv, "hd": hd, "S": s,
            "pos": pos_list if per_slot else pos_list[0],
            "max_abs_err": max_err(got, want), "tol": ATTN_TOL,
-           "ok": allclose(got, want, ATTN_TOL),
+           "repeat_bit_identical": repeats,
+           "ok": allclose(got, want, ATTN_TOL) and repeats,
            "bound_ms": b_ms, "bound_by": b_by}
     if timed:
         lib = _sdpa(q, kc, vc, pos_list * (b // len(pos_list)), sq, ks, vs)
@@ -457,10 +461,12 @@ def _paged_case(timer, randn, gen, b, h, hkv, hd, ps, np_, pos_list, timed,
         return None if t is None else _gather_dense(t, bt).contiguous()
 
     got = paged_decode_attention(q, ak, av, bt, pos, scale, aks, avs)
+    again = paged_decode_attention(q, ak, av, bt, pos, scale, aks, avs)
     want = plain_paged_attention(q, ak, av, bt, pos, scale, aks, avs)
     kd, vd, ksd, vsd = dense(ak), dense(av), dense(aks), dense(avs)
     b3 = decode_attention(q, kd, vd, pos, scale, ksd, vsd)
     torch.cuda.synchronize()
+    repeats = bool(torch.equal(got, again))
     s = np_ * ps
     vis = [min(p + 1, s) for p in pos_list]
     nbytes = (2 * q.numel() * 2 + sum(vis) * hkv * _kv_row_bytes(hd, kind) * 2
@@ -471,8 +477,9 @@ def _paged_case(timer, randn, gen, b, h, hkv, hd, ps, np_, pos_list, timed,
            "hd": hd, "ps": ps, "NP": np_, "P": p_, "pos": pos_list,
            "max_abs_err": max_err(got, want), "tol": ATTN_TOL,
            "equal_to_b3": bool(torch.equal(got, b3)),
-           "ok": allclose(got, want, ATTN_TOL) and bool(torch.equal(got,
-                                                                     b3)),
+           "repeat_bit_identical": repeats,
+           "ok": allclose(got, want, ATTN_TOL) and repeats
+           and bool(torch.equal(got, b3)),
            "bound_ms": b_ms, "bound_by": b_by}
     if timed:
         kid = torch.arange(s, device=dev)
@@ -813,14 +820,21 @@ def phase_kernels(timer):
     del w
 
     # the quantized-KV bodies of B3, B4 and B5 (fp8_e5m2, int8, int4): timed
-    # at the main path's shapes (B5 must equal B3 bit for bit on the same
-    # codes and scales), checked only at the other head dims and groups
+    # at the main path's shapes (B3 and B5 at Llama-2-7B's heads and at
+    # Mixtral-8x7B's GQA; B5 must equal B3 bit for bit on the same codes and
+    # scales), checked only at the other head dims and groups
     for kind in QUANT_KV_KINDS:
         pos_list = [int(p) for p in rng.integers(1, 2048, 8)]
         pos_list[0] = 2047
         small = [255, 3, 130, 0]
+        # a generator of their own: the MHA cases keep their positions
+        gqa_pos = [int(p) for p in np.random.default_rng(
+            [17, QUANT_KV_KINDS.index(kind)]).integers(1, 2048, 8)]
+        gqa_pos[0] = 2047
         cases = [("decode_attention", 8, 1, 32, 32, 128, 2048, pos_list,
                   True),
+                 # Mixtral-8x7B's GQA, 32 query heads on 8 kv heads
+                 ("decode_attention", 8, 1, 32, 8, 128, 2048, gqa_pos, True),
                  ("decode_attention", 4, 1, 8, 2, 64, 256, small, False),
                  ("decode_attention", 4, 1, 8, 2, 256, 256, small, False),
                  ("prefill_attention", 1, 256, 32, 32, 128, 2048, [256],
@@ -836,7 +850,10 @@ def phase_kernels(timer):
             emit({"phase": "kernels", **rec})
         paged_pos = list(pos_list)
         paged_pos[-1] = 2048 + 37
+        paged_gqa = list(gqa_pos)
+        paged_gqa[-1] = 2048 + 37
         for case in ((8, 32, 32, 128, 128, 16, paged_pos, True),
+                     (8, 32, 8, 128, 128, 16, paged_gqa, True),
                      (4, 8, 2, 64, 128, 2, [255, 3, 130, 261], False)):
             rec = _paged_case(timer, randn, gen, *case, kind=kind)
             records.append(rec)
@@ -1101,12 +1118,12 @@ def _kernel_group(name: str) -> str:
 
 
 def _device_ms_by_group(prof, steps):
-    """(device ms per step by kernel group, launches per step) from a
-    finished profile; raises AttributeError on a profiler without the
-    fields read here."""
+    """(device ms per step by kernel group, launches per step, launches
+    per step by group) from a finished profile; raises AttributeError on a
+    profiler without the fields read here."""
     from torch.autograd import DeviceType
 
-    groups, launches = {}, 0
+    groups, by_group = {}, {}
     for e in prof.key_averages():
         # a record_function range shows on the device too: not a kernel
         if e.device_type != DeviceType.CUDA or e.key.startswith("bigdl."):
@@ -1115,8 +1132,8 @@ def _device_ms_by_group(prof, steps):
               or getattr(e, "self_cuda_time_total", 0))
         g = _kernel_group(e.key)
         groups[g] = groups.get(g, 0.0) + us / 1e3 / steps
-        launches += e.count
-    return groups, launches / steps
+        by_group[g] = by_group.get(g, 0) + e.count / steps
+    return groups, sum(by_group.values()), by_group
 
 
 def _profile_decode(eng, requests, steps=4):
@@ -1126,6 +1143,14 @@ def _profile_decode(eng, requests, steps=4):
     own start and read-out may fail ("not measured"); a failing engine
     step fails the run."""
     from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch.ops.cuda import launch_counts
+
+    def attention_calls():
+        # B3 and B5 calls of every storage kind
+        return sum(v for k, v in launch_counts().items()
+                   if k.startswith(("decode_attention",
+                                    "paged_decode_attention")))
 
     for rid, prompt, sp in requests:
         eng.add_request(rid + "-prof", prompt, sp)
@@ -1139,20 +1164,30 @@ def _profile_decode(eng, requests, steps=4):
     except (RuntimeError, AttributeError) as e:   # profiler unavailable
         prof = None
         out["device_ms_per_step"] = f"not measured: {e}"
+    calls0 = attention_calls()
     t0 = time.perf_counter()
     for _ in range(steps):
         eng.step()
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0) / steps
     out["wall_ms_per_step"] = wall_ms
+    out["attention_calls_per_step"] = (attention_calls() - calls0) / steps
     if prof is not None:
         prof.__exit__(None, None, None)
         try:
-            groups, launches = _device_ms_by_group(prof, steps)
+            groups, launches, by_group = _device_ms_by_group(prof, steps)
         except (RuntimeError, AttributeError) as e:
             groups, out["device_ms_per_step"] = {}, f"not measured: {e}"
         if groups:
             dev = sum(groups.values())
+            # B3 / B5 are one kernel a call (no merge pass): the step's
+            # launches fall by its attention calls against a two-kernel
+            # body (PERF.md section 5 keeps the earlier runs' counts)
+            b3 = by_group.get("decode_attention (B3)", 0.0)
+            out["attention_launches_per_step"] = b3
+            require(b3 == out["attention_calls_per_step"] > 0,
+                    f"decode_profile: {b3} decode attention kernels a step "
+                    f"for {out['attention_calls_per_step']} calls")
             out.update(device_ms_per_step=dev,
                        device_idle_share=max(0.0, 1.0 - dev / wall_ms),
                        kernel_launches_per_step=launches,
@@ -1225,7 +1260,7 @@ def phase_prefill_profile(params, cfg, family, model, prompt_len):
     if prof is not None:
         prof.__exit__(None, None, None)
         try:
-            groups, launches = _device_ms_by_group(prof, 1)
+            groups, launches, _ = _device_ms_by_group(prof, 1)
             dtm = [e for e in prof.key_averages()
                    if e.key == DEQUANT_THEN_MATMUL
                    and e.device_type == DeviceType.CPU]
@@ -1983,6 +2018,13 @@ def summary(records, counts):
                 extra[routing] = {k: other[k] for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "entry", "max_abs_err", "ps_per_weight")}
+        if name.startswith(("decode_attention", "paged_decode_attention")):
+            # Mixtral-8x7B's GQA (32 query heads on 8 kv heads)
+            gqa = next(r for r in mine if "ms" in r and r.get("Hkv") == 8
+                       and r.get("hd") == 128 and r.get("B") == 8)
+            extra["gqa"] = {k: gqa[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err") + (("b3_ms",) if "b3_ms" in gqa else ())}
         out.append({"name": name, "route": "cuda", **meta, **extra,
                     "launches": int(counts.get(name, 0)),
                     "max_abs_err": max(r["max_abs_err"] for r in mine),
