@@ -57,7 +57,7 @@ SIGNATURES = {
         + [_c_float, _c_void_p],
         "bigdl_decode_attention_blocks_per_sm": [_c_int] * 3},
     "prefill_attention": {
-        "bigdl_prefill_attention": [_c_void_p] * 7 + [_c_int] * 7
+        "bigdl_prefill_attention": [_c_void_p] * 7 + [_c_int] * 8
         + [_c_float, _c_void_p]},
     "paged_decode_attention": {
         "bigdl_paged_decode_attention": [_c_void_p] * 10 + [_c_int] * 9

@@ -70,15 +70,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t* a, const void* p) {
         : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* a, const void* p) {
-    const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
-        : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-        : "r"(addr)
-        : "memory");
-}
-
 // c += a . b on the tensor cores: m16n8k16, bf16 in, f32 accumulate
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
                                          uint32_t b0, uint32_t b1) {

@@ -140,14 +140,6 @@ __host__ __device__ constexpr int smem_bytes() {
                                 : (parts > weights ? parts : weights));
 }
 
-// byte x of row r of a K or V tile as the TMA swizzle lays it: the box of
-// x, row r at r * kW, then 16-byte chunk bits 4.. xor'ed with row bits 7..
-template <class Ge>
-__device__ __forceinline__ int tile_off(int r, int x) {
-    const int a = (x / Ge::kW) * (kTile * Ge::kW) + r * Ge::kW + x % Ge::kW;
-    return a ^ ((a >> 3) & (Ge::kW - 16));
-}
-
 struct Args {
     const uint16_t* q;       // [B, H, hd] bf16
     const uint8_t* k;        // [rows, Hkv, hd] codes
@@ -162,93 +154,11 @@ struct Args {
     float scale_log2;        // scale * log2(e): scores in base 2
 };
 
-// The dims of a lane's K slice behind k step s, in the order of the mma's
-// k slots {2t, 2t+1, 2t+8, 2t+9}: where kv_pair_* finds a pair, so q is
-// loaded in the same order. bf16: 4s..4s+3; int8, fp8: 4s, 4s+2, 4s+1,
-// 4s+3 (the bytes at 0/16 and 8/24 of word s); int4: nibbles m, m+4 and
-// m+1, m+5 of word s/2 with m = 2 (s % 2).
-template <int KIND>
-__device__ __forceinline__ int kslot_dim(int s, int e) {
-    if (KIND == KV_BF16) return 4 * s + e;
-    if (KIND == KV_INT4) {
-        const int m = 8 * (s >> 1) + 2 * (s & 1);
-        return m + (e >> 1) + 4 * (e & 1);
-    }
-    return 4 * s + 2 * (e & 1) + (e >> 1);
-}
-
-// B fragment {b0, b1} of k step s from a lane's K slice (words w)
-template <int KIND, int NW>
-__device__ __forceinline__ void k_frag(const uint32_t (&w)[NW], int s,
-                                       uint32_t& b0, uint32_t& b1) {
-    if (KIND == KV_BF16) {
-        b0 = w[2 * s];
-        b1 = w[2 * s + 1];
-    } else if (KIND == KV_INT8) {
-        b0 = kv_pair_i8(w[s]);
-        b1 = kv_pair_i8(w[s] >> 8);
-    } else if (KIND == KV_E5M2) {
-        b0 = kv_pair_e5m2(w[s] << 8);
-        b1 = kv_pair_e5m2(w[s]);
-    } else {
-        const uint32_t x = w[s >> 1] >> (8 * (s & 1));
-        b0 = kv_pair_i4(x);
-        b1 = kv_pair_i4(x >> 4);
-    }
-}
-
-// bf16x2 of dim i of a lane's V slice for two keys (words wa, wb)
-template <int KIND, int NW>
-__device__ __forceinline__ uint32_t v_pair(const uint32_t (&wa)[NW],
-                                           const uint32_t (&wb)[NW], int i) {
-    if (KIND == KV_BF16) {
-        return __byte_perm(wa[i >> 1], wb[i >> 1], (i & 1) ? 0x7632 : 0x5410);
-    } else if (KIND == KV_INT8) {
-        const uint32_t p = __byte_perm(wa[i >> 2], wb[i >> 2],
-                                       (i & 2) ? 0x7632 : 0x5410);
-        return kv_pair_i8((i & 1) ? p >> 8 : p);
-    } else if (KIND == KV_E5M2) {
-        const uint32_t p = __byte_perm(wa[i >> 2], wb[i >> 2],
-                                       (i & 2) ? 0x7632 : 0x5410);
-        return kv_pair_e5m2((i & 1) ? p : p << 8);
-    } else {
-        const uint32_t p = __byte_perm(wa[i >> 3], wb[i >> 3],
-                                       (i & 4) ? 0x7632 : 0x5410);
-        return kv_pair_i4(p >> (4 * (i & 3)));
-    }
-}
-
-// NW words of row r of a tile from byte x0 on (16-, 8- or 4-byte pieces,
-// each inside one swizzled chunk)
+// NW words of row r of a K or V tile from byte x0 on (tma.cuh)
 template <class Ge, int NW>
 __device__ __forceinline__ void lds_words(uint32_t (&w)[NW], const uint8_t* t,
                                           int r, int x0) {
-    const uint8_t* p = t;
-    static_assert(Ge::kW % 16 == 0, "a piece stays inside one chunk");
-    if constexpr (NW % 4 == 0) {
-#pragma unroll
-        for (int i = 0; i < NW; i += 4) {
-            const uint4 u = *reinterpret_cast<const uint4*>(
-                p + tile_off<Ge>(r, x0 + 4 * i));
-            w[i] = u.x;
-            w[i + 1] = u.y;
-            w[i + 2] = u.z;
-            w[i + 3] = u.w;
-        }
-    } else if constexpr (NW % 2 == 0) {
-#pragma unroll
-        for (int i = 0; i < NW; i += 2) {
-            const uint2 u = *reinterpret_cast<const uint2*>(
-                p + tile_off<Ge>(r, x0 + 4 * i));
-            w[i] = u.x;
-            w[i + 1] = u.y;
-        }
-    } else {
-#pragma unroll
-        for (int i = 0; i < NW; ++i)
-            w[i] = *reinterpret_cast<const uint32_t*>(
-                p + tile_off<Ge>(r, x0 + 4 * i));
-    }
+    lds_swizzled<Ge::kW, kTile>(w, t, r, x0);
 }
 
 // max / sum over the 8 lanes of one mma column (lanes t, t + 4, ..)

@@ -16,14 +16,11 @@
 // the code converted to f32 exactly, multiplied by its f32 scale in f32,
 // the product rounded to bf16 before any dot.
 //
-// A policy Kv<K> gives kBits, kScaled, the type Word4 that holds the codes
-// of 4 consecutive head dims (8, 4 or 2 bytes), and code(w, i), the i-th of
-// them as f32 (before scaling); scaled4 turns one Word4 into 4 values
-// before the bf16 rounding (B4 rounds as it packs them). The decode body
-// (B3, B5) converts code pairs exactly with kv_pair_* instead.
+// A policy Kv<K> gives kBits and kScaled. The attention bodies (B3, B4,
+// B5) convert code pairs exactly with kv_pair_* and fold the scales out of
+// the products, in the order kslot_dim / k_frag / v_pair (at the end) give
+// the mma.sync operands.
 #pragma once
-
-#include <cuda_fp16.h>
 
 #include "common.cuh"
 
@@ -36,64 +33,33 @@ template <>
 struct Kv<KV_BF16> {
     static constexpr int kBits = 16;
     static constexpr bool kScaled = false;
-    using Word4 = uint2;
-    __device__ __forceinline__ static float code(Word4 w, int i) {
-        const uint32_t u = i < 2 ? w.x : w.y;
-        return __uint_as_float(i & 1 ? (u & 0xffff0000u) : (u << 16));
-    }
 };
 
 template <>
 struct Kv<KV_E5M2> {
     static constexpr int kBits = 8;
     static constexpr bool kScaled = false;
-    using Word4 = uint32_t;
-    __device__ __forceinline__ static float code(Word4 w, int i) {
-        const unsigned short h =
-            (unsigned short)(((w >> (8 * i)) & 0xffu) << 8);
-        return __half2float(__ushort_as_half(h));
-    }
 };
 
 template <>
 struct Kv<KV_INT8> {
     static constexpr int kBits = 8;
     static constexpr bool kScaled = true;
-    using Word4 = uint32_t;
-    __device__ __forceinline__ static float code(Word4 w, int i) {
-        return (float)((int)(w << (24 - 8 * i)) >> 24);
-    }
 };
 
 template <>
 struct Kv<KV_INT4> {
     static constexpr int kBits = 4;
     static constexpr bool kScaled = true;
-    using Word4 = uint16_t;
-    __device__ __forceinline__ static float code(Word4 w, int i) {
-        return (float)((int)((uint32_t)w << (28 - 4 * i)) >> 28);
-    }
 };
 
-// 4 codes -> their f32 values before any bf16 rounding: the code, times
-// its scale for the scaled kinds (scale ignored by the others)
-template <class KV>
-__device__ __forceinline__ void scaled4(typename KV::Word4 w, float scale,
-                                        float* out) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const float c = KV::code(w, i);
-        out[i] = KV::kScaled ? c * scale : c;
-    }
-}
-
-// Exact code pairs -> bf16x2 (lo half first), for the decode body's
-// tensor-core operands (decode_attention.cuh). No scale is applied: every
-// int8/int4 code and every e5m2 value is a bf16 value, and the decode body
-// folds the scales into the score and the probability instead. Each takes
-// the two codes where a shift or one prmt leaves them and ignores the other
-// bits of its word, so a caller pairs codes of one row or of two rows at
-// the cost of that one instruction.
+// Exact code pairs -> bf16x2 (lo half first), for the attention bodies'
+// tensor-core operands (decode_attention.cuh, prefill_attention.cu). No
+// scale is applied: every int8/int4 code and every e5m2 value is a bf16
+// value, and the bodies fold the scales into the score and the probability
+// instead. Each takes the two codes where a shift or one prmt leaves them
+// and ignores the other bits of its word, so a caller pairs codes of one
+// row or of two rows at the cost of that one instruction.
 
 // int4: the nibbles at bits 0-3 and 16-19 of x (two's complement).
 // (0x4300 | (n ^ 8)) is the bf16 value 136 + c; fma(v, 1, -136) is c.
@@ -123,8 +89,65 @@ __device__ __forceinline__ uint32_t kv_pair_e5m2(uint32_t x) {
     return fma_bf16x2(mag, sgn, 0x80008000u);
 }
 
-// bytes of `n` codes of this kind (n a multiple of 2)
-template <class KV>
-__device__ __host__ __forceinline__ constexpr size_t code_bytes(size_t n) {
-    return n * KV::kBits / 8;
+// Operands of m16n8k16 from a row's codes. A lane's K slice is a quarter
+// of a key's row (its words w: the dims [t * hd/4, (t + 1) * hd/4) of the
+// lane t = lane % 4); its V slice an eighth (dims [g * hd/8, (g + 1) *
+// hd/8) of the lane g = lane / 4). The score's dot runs over the k slots
+// of hd/16 k steps in any order of the dims, so each kind takes the order
+// that its pairs come in, and q is loaded in the same order.
+
+// The dims of a lane's K slice behind k step s, in the order of the mma's
+// k slots {2t, 2t+1, 2t+8, 2t+9}: where kv_pair_* finds a pair, so q is
+// loaded in the same order. bf16: 4s..4s+3; int8, fp8: 4s, 4s+2, 4s+1,
+// 4s+3 (the bytes at 0/16 and 8/24 of word s); int4: nibbles m, m+4 and
+// m+1, m+5 of word s/2 with m = 2 (s % 2).
+template <int KIND>
+__device__ __forceinline__ int kslot_dim(int s, int e) {
+    if (KIND == KV_BF16) return 4 * s + e;
+    if (KIND == KV_INT4) {
+        const int m = 8 * (s >> 1) + 2 * (s & 1);
+        return m + (e >> 1) + 4 * (e & 1);
+    }
+    return 4 * s + 2 * (e & 1) + (e >> 1);
+}
+
+// B fragment {b0, b1} of k step s from a lane's K slice (words w)
+template <int KIND, int NW>
+__device__ __forceinline__ void k_frag(const uint32_t (&w)[NW], int s,
+                                       uint32_t& b0, uint32_t& b1) {
+    if (KIND == KV_BF16) {
+        b0 = w[2 * s];
+        b1 = w[2 * s + 1];
+    } else if (KIND == KV_INT8) {
+        b0 = kv_pair_i8(w[s]);
+        b1 = kv_pair_i8(w[s] >> 8);
+    } else if (KIND == KV_E5M2) {
+        b0 = kv_pair_e5m2(w[s] << 8);
+        b1 = kv_pair_e5m2(w[s]);
+    } else {
+        const uint32_t x = w[s >> 1] >> (8 * (s & 1));
+        b0 = kv_pair_i4(x);
+        b1 = kv_pair_i4(x >> 4);
+    }
+}
+
+// bf16x2 of dim i of a lane's V slice for two keys (words wa, wb)
+template <int KIND, int NW>
+__device__ __forceinline__ uint32_t v_pair(const uint32_t (&wa)[NW],
+                                           const uint32_t (&wb)[NW], int i) {
+    if (KIND == KV_BF16) {
+        return __byte_perm(wa[i >> 1], wb[i >> 1], (i & 1) ? 0x7632 : 0x5410);
+    } else if (KIND == KV_INT8) {
+        const uint32_t p = __byte_perm(wa[i >> 2], wb[i >> 2],
+                                       (i & 2) ? 0x7632 : 0x5410);
+        return kv_pair_i8((i & 1) ? p >> 8 : p);
+    } else if (KIND == KV_E5M2) {
+        const uint32_t p = __byte_perm(wa[i >> 2], wb[i >> 2],
+                                       (i & 2) ? 0x7632 : 0x5410);
+        return kv_pair_e5m2((i & 1) ? p : p << 8);
+    } else {
+        const uint32_t p = __byte_perm(wa[i >> 3], wb[i >> 3],
+                                       (i & 4) ? 0x7632 : 0x5410);
+        return kv_pair_i4(p >> (4 * (i & 3)));
+    }
 }

@@ -1,436 +1,766 @@
-// B4: blockwise (flash) causal attention for prefill chunks, forward only.
+// B4: causal flash attention of a prefill chunk, forward only, in one
+// launch.
 //
 // Replaces bigdl_tpu/ops/pallas/prefill_attention.py::_pfa_impl: the bf16
 // body `_kernel` (with its float8_e5m2 input, upcast in-register) and the
 // int8/int4 body `_kernel_scaled`. Sq new queries q [B, Sq, H, hd] against
-// S_max cache rows k/v [B, S_max, Hkv, hd] (codes of a kv_storage.cuh kind;
-// int8/int4 with f32 scales [B, S_max, Hkv]) at offset pos; key kj is
-// visible to query qi iff kj <= pos[b] + qi. Online softmax in f32
-// (running m, l, acc), the probabilities rounded to bf16 before the value
-// product, and the l == 0 guard for rows with no visible key. Output bf16
-// [B, Sq, H, hd].
+// S cache rows k/v [B, S, Hkv, hd] (codes of a kv_storage.cuh kind;
+// int8/int4 with f32 scales [B, S, Hkv]) at offset pos[b]; key j is
+// visible to query i iff j <= pos[b] + i. Scores and softmax in f32, the
+// probabilities rounded to bf16 before the value product, a row that sees
+// no key gives 0; output bf16 [B, Sq, H, hd]. The scaled kinds fold their
+// f32 scales out of the products as the decode body does
+// (decode_attention.cuh): score = scale * k_scale[j] * (q . c_j) over the
+// exact codes, and the probability is multiplied by v_scale[j] before its
+// bf16 rounding, where the TPU kernels' `_dequant_rows` rounds each
+// c * scale to bf16 first (one bf16 rounding a term apart).
 //
-// Bound on the H100: bytes at the engine's chunk shapes (Sq 128-256 against
-// a cache of a few hundred to a few thousand rows): the visible K/V rows
-// (codes and scales) and q/out move more bytes than the tensor cores need
-// time for their flops, ~4 * hd flops per (query, visible key) pair.
+// Bound on the H100: at the engine's chunks (Sq 128-256 against a few
+// hundred to a few thousand visible keys) the bytes of q, out and the
+// visible K/V rows take longer than the ~4 hd flops of each (query,
+// visible key, head) on the tensor cores, but not by much (Sq 256, pos
+// 256, Llama-2-7B's heads: 3.8 us of bytes, 1.6 us of flops), so the body
+// has to keep the loads and the mma pipe busy on every SM at once.
 //
-// Design (FlashAttention-2 on mma.sync m16n8k16, bf16 in, f32 accumulate):
-// one block of 4 warps per (64-query tile, b*h), each warp owning 16 query
-// rows. The Q tile and 64-key K/V tiles sit in shared memory (cp.async,
-// the next K/V tile in flight while this one computes); the block walks K
-// tiles only up to the last key visible to its last query, so masked tiles
-// are never read. S = Q K^T comes from ldmatrix fragments, is masked,
-// scaled and folded into the running (m, l) in registers; the bf16 P
-// fragments feed P V directly (the S accumulator layout is the A operand
-// layout), with V read by ldmatrix.trans. Scores never exist in device or
-// shared memory.
+// Design:
+// - Work unit: (slot, kv head, query tile, span of keys). A block's 64
+//   rows are the G = H / Hkv query heads of one kv head times 64 / G
+//   queries, head-major (at G <= 4 warp w's 16 rows are one head's 16
+//   queries), so each K/V tile is loaded once for all G heads. The host's
+//   planner (ops/cuda/prefill_attention.py::plan_prefill) picks nspan,
+//   the blocks a query tile, without the position (the host never reads
+//   pos): the fewest that put a block with keys on every SM at the
+//   cache's last chunk. On the card each query tile's visible keys,
+//   min(pos + its last query + 1, S), are cut evenly in whole tiles over
+//   at most nspan spans and at most one span a kWholeTiles key tiles
+//   (rounded up), so a tile that sees 256 keys or fewer, as every tile of
+//   a first chunk does, stays one span (a shorter span costs more in q and
+//   merge than the SM it fills); the other blocks of its cluster leave at
+//   once, and where every tile of the call is one span the first blocks
+//   take the tiles and the rest leave. Block indices run from the last
+//   query tile (the most keys) to the first, so the heavy blocks start
+//   first and the light ones fill in behind them.
+// - Loads: the block's q rows come once, 16 contiguous bytes a thread by
+//   cp.async into shared memory, then into registers as the A operand.
+//   Warp 0 streams the span's K and V tiles into a ring of 2-8 stages
+//   (sized to the kind) as TMA boxes: one box a 64-row slab of kW bytes of
+//   a row (kW the widest of 128/64/32 dividing it), laid out with the
+//   kW-byte swizzle so the rows a quarter-warp reads sit on other banks,
+//   completing on the stage's "full" mbarrier; the int8/int4 scales come
+//   by 4-byte cp.async (zeros past the span) tracked by the same barrier.
+//   The four warps hand a stage back through its "empty" barrier, and
+//   warp 0 refills it with the tile kStages on. No block-wide barrier
+//   inside the loop. (A fifth, producer-only warp cost registers: five
+//   warps a block put three on some SM quarter at two blocks an SM, and
+//   ptxas held every thread to 168 registers.)
+// - Both products on mma.sync m16n8k16 (bf16 in, f32 accumulate): S = Q K^T
+//   with q as the A operand (in the head-dim order the kind pairs its
+//   codes in: kslot_dim) and each K tile's B fragments converted straight
+//   from the staged codes (k_frag: exact kv_pair_* of kv_storage.cuh; no
+//   dequantized tile in shared memory), 16 bytes of each key's slice at a
+//   time so the eight mma of a k step do not wait on each other; then
+//   O += P V with P taken from S's accumulators and V's B fragments paired
+//   two keys one dim by one prmt (v_pair). The accumulators are rescaled
+//   only when some row's running max moved (a warp vote). Output rows are
+//   scaled by one reciprocal of l: an IEEE division a value took its slow
+//   path on the H100 and cost microseconds a block.
+// - A query tile cut into several spans merges them in the same launch:
+//   its nspan blocks are one thread-block cluster; each leaves its (m, l,
+//   acc) in its own shared memory, and after a cluster barrier the warps
+//   merge the spans in span order through distributed shared memory (the
+//   bits do not depend on which block finishes first) and write bf16 out.
+//   One launch, no second kernel, no workspace, no memset, no host sync,
+//   no allocation.
 //
-// Narrow storage (fp8_e5m2, int8, int4): the code tiles of K and V and
-// their 64 scales each are staged with cp.async into a double-buffered raw
-// ring (the next tile in flight while this one computes), then dequantized
-// in one pass (scaled4 of kv_storage.cuh, rounded to bf16 as it is packed:
-// the bits of the TPU kernels' `_dequant_rows`) into a single bf16
-// [64][LD] K and V tile, which the mma code reads as it reads a bf16
-// cache's tiles.
+// Probe builds (tools/bench_attention.py --probe; their output is not the
+// attention, only their time is read): -DBIGDL_PFA_PROBE=1 stages the
+// tiles and does no arithmetic on them, =2 does the arithmetic on whatever
+// the ring holds and loads nothing, =3 takes no tile at all (the launch, q
+// into registers and the merges alone).
 #include "common.cuh"
 #include "kv_storage.cuh"
+#include "tma.cuh"
+
+#ifndef BIGDL_PFA_PROBE
+#define BIGDL_PFA_PROBE 0
+#endif
 
 namespace {
 
-constexpr int kBQ = 64;                  // queries per block (16 per warp)
-constexpr int kBK = 64;                  // keys per tile
-constexpr int kWarps = 4;
+constexpr int kWarps = 4;                     // warps a block, 16 rows each
 constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;            // (query, head) rows a block
+constexpr int kKT = 64;                       // keys a tile
+constexpr int kRingBytes = 64 * 1024;         // target size of the ring
+constexpr int kMaxStages = 8;
+constexpr int kMaxSpans = 8;                  // blocks a query tile
+constexpr int kWholeTiles = 4;                // key tiles a span before a
+                                              // query tile takes two
+constexpr int kMaxGroup = 16;                 // query heads a kv head
+constexpr float kLog2e = 1.4426950408889634f;
 
-// rows [r0, r0 + 64) of one head ([rows, hd] with row stride `rs`
-// elements) into a [64][LD] shared tile; rows >= nrows as zeros
-template <int HD, int LD>
-__device__ __forceinline__ void stage_rows(uint16_t* dst,
-                                           const uint16_t* __restrict__ src,
-                                           size_t rs, int r0, int nrows,
-                                           int tid) {
-    constexpr int kPieces = HD / 8;      // 16-byte pieces per row
+__host__ __device__ constexpr int clampi(int x, int lo, int hi) {
+    return x < lo ? lo : x > hi ? hi : x;
+}
+
+// the layout of one (storage kind, head dim) instantiation
+template <int KIND, int HD>
+struct Geo {
+    static constexpr bool kScaled = Kv<KIND>::kScaled;
+    static constexpr int kRow = HD * Kv<KIND>::kBits / 8;  // bytes a row
+    static constexpr int kW = kRow % 128 == 0 ? 128 : kRow % 64 == 0 ? 64
+                                                                     : 32;
+    static constexpr int kBoxes = kRow / kW;
+    static constexpr int kTileBytes = kKT * kRow;   // a multiple of 2048
+    static constexpr int kStage = 2 * kTileBytes;   // the K tile, then V
+    static constexpr int kScales = kScaled ? 2 * kKT * 4 : 0;
+    static constexpr int kStages =
+        clampi(kRingBytes / (kStage + kScales), 2, kMaxStages);
+    // the code ring, then the stages' K and V scales, then the block's q
+    // rows (16 bytes of padding a row); 1024 bytes of slack align the ring
+    // for the swizzle
+    static constexpr int kQRow = 2 * HD + 16;
+    // a block's partial in register order, after the loop: a lane's (m, l)
+    // of both rows, then its HD/2 accumulators, 16 bytes at a time, over
+    // the ring
+    static constexpr int kPart = kWarps * 32 * 16 * (1 + HD / 8);
+    static constexpr int kRingAll = kStages * (kStage + kScales);
+    static constexpr int kSmem =
+        1024 + (kRingAll > kPart ? kRingAll : kPart) + kRows * kQRow;
+    static constexpr int kKSteps = HD / 16;     // k steps of Q K^T
+    static constexpr int kNT = HD / 8;          // n8 tiles of dims of O
+    static constexpr int kKWords = kRow / 16;   // a lane's K slice
+    static constexpr int kVWords = kRow / 32;   // a lane's V slice
+    // the K slice read 16 bytes (or all of it) at a time: kChunkSteps k
+    // steps a chunk
+    static constexpr int kCW = kKWords < 4 ? kKWords : 4;
+    static constexpr int kChunks = kKWords / kCW;
+    static constexpr int kChunkSteps = kKSteps / kChunks;
+};
+
+struct Args {
+    const uint16_t* q;       // [B, Sq, H, hd] bf16
+    const float* ks;         // [B, S, Hkv] (int8/int4)
+    const float* vs;
+    const int* pos;          // [B]
+    uint16_t* out;           // [B, Sq, H, hd] bf16
+    int B, Sq, S, H, Hkv;
+    int G, QT, nqt, nspan;   // heads a kv head, queries a tile, tiles,
+                             // blocks (a cluster) a query tile
+    float scale_log2;        // scale * log2(e): scores in base 2
+};
+
+// NW words from base + off[0] (16-, 8- or 4-byte pieces; a 16-byte piece
+// p at base + off[p], the offsets swizzled() gives)
+template <int NW, int NP>
+__device__ __forceinline__ void lds_at(uint32_t (&w)[NW], const uint8_t* base,
+                                       const int (&off)[NP]) {
+    if constexpr (NW >= 4) {
+        static_assert(NP * 4 == NW, "a 16-byte piece a word quad");
 #pragma unroll
-    for (int r = 0; r < 64 * kPieces / kThreads; ++r) {
-        const int i = tid + r * kThreads;
-        const int row = i / kPieces;
-        const int d = 8 * (i % kPieces);
-        const bool ok = r0 + row < nrows;
-        cp_async16(dst + row * LD + d,
-                   ok ? src + (size_t)(r0 + row) * rs + d : src, ok ? 16 : 0);
-    }
-}
-
-// the same for narrow codes: rows [r0, r0 + 64) of RB bytes each (row
-// stride `rs` bytes) into a packed [64][RB] byte tile; rows >= nrows as
-// zeros
-template <int RB>
-__device__ __forceinline__ void stage_codes(uint8_t* dst,
-                                            const uint8_t* __restrict__ src,
-                                            size_t rs, int r0, int nrows,
-                                            int tid) {
-    constexpr int kPieces = RB / 16;     // 16-byte pieces per row
-#pragma unroll
-    for (int r = 0; r < 64 * kPieces / kThreads; ++r) {
-        const int i = tid + r * kThreads;
-        const int row = i / kPieces;
-        const int c = 16 * (i % kPieces);
-        const bool ok = r0 + row < nrows;
-        cp_async16(dst + row * RB + c,
-                   ok ? src + (size_t)(r0 + row) * rs + c : src, ok ? 16 : 0);
-    }
-}
-
-// 4-byte cp.async (cache at all levels); src_bytes 0 writes zeros
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-    const uint32_t addr = (uint32_t)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
-                 :: "r"(addr), "l"(src), "r"(src_bytes) : "memory");
-}
-
-// the 64 K scales (threads 0-63) and 64 V scales (64-127) of a tile, from
-// planes with row stride `rs` floats; rows >= nrows as zeros
-__device__ __forceinline__ void stage_scales(float* dst, const float* ks,
-                                             const float* vs, size_t rs,
-                                             int r0, int nrows, int tid) {
-    const int row = tid & 63;
-    const float* src = tid < 64 ? ks : vs;
-    const bool ok = r0 + row < nrows;
-    cp_async4(dst + tid, ok ? src + (size_t)(r0 + row) * rs : src,
-              ok ? 4 : 0);
-}
-
-// a staged [64][RB] code tile (and its 64 scales) -> bf16 [64][LD] tile,
-// 8 head dims a step
-template <class KV, int HD, int LD>
-__device__ __forceinline__ void dequant_tile(uint16_t* dst,
-                                             const uint8_t* src,
-                                             const float* scl, int tid) {
-    constexpr int RB = (int)code_bytes<KV>(HD);
-    constexpr int kChunks = HD / 8;
-    using Word = typename KV::Word4;
-#pragma unroll
-    for (int r = 0; r < 64 * kChunks / kThreads; ++r) {
-        const int i = tid + r * kThreads;
-        const int row = i / kChunks;
-        const int d = 8 * (i % kChunks);
-        const Word* p = reinterpret_cast<const Word*>(
-            src + row * RB + code_bytes<KV>(d));
-        const float sc = KV::kScaled ? scl[row] : 1.f;
-        float f[8];                      // rounded to bf16 by the packing
-        scaled4<KV>(p[0], sc, f);
-        scaled4<KV>(p[1], sc, f + 4);
-        uint4 o;
-        o.x = pack_bf16x2(f[0], f[1]);
-        o.y = pack_bf16x2(f[2], f[3]);
-        o.z = pack_bf16x2(f[4], f[5]);
-        o.w = pack_bf16x2(f[6], f[7]);
-        *reinterpret_cast<uint4*>(dst + row * LD + d) = o;
-    }
-}
-
-// tile j of K and V into buffer `buf`: a bf16 cache's rows straight into
-// the bf16 tiles Ks/Vs [2][kBK][LD]; narrow codes (and the scales of
-// int8/int4) into the raw ring, [2][K, V][kBK][RB] bytes and
-// [2][K, V][kBK] floats
-template <int HD, int LD, class KV>
-__device__ __forceinline__ void stage_kv(uint16_t* Ks, uint16_t* Vs,
-                                         uint8_t* raw, float* rsc,
-                                         const uint8_t* kb, const uint8_t* vb,
-                                         const float* ksb, const float* vsb,
-                                         size_t krs, int Hkv, int j, int buf,
-                                         int Smax, int tid) {
-    if constexpr (KV::kBits == 16) {
-        stage_rows<HD, LD>(Ks + buf * kBK * LD,
-                           reinterpret_cast<const uint16_t*>(kb), krs,
-                           j * kBK, Smax, tid);
-        stage_rows<HD, LD>(Vs + buf * kBK * LD,
-                           reinterpret_cast<const uint16_t*>(vb), krs,
-                           j * kBK, Smax, tid);
-    } else {
-        constexpr int RB = (int)code_bytes<KV>(HD);
-        uint8_t* r = raw + buf * 2 * kBK * RB;
-        stage_codes<RB>(r, kb, code_bytes<KV>(krs), j * kBK, Smax, tid);
-        stage_codes<RB>(r + kBK * RB, vb, code_bytes<KV>(krs), j * kBK,
-                        Smax, tid);
-        if constexpr (KV::kScaled) {
-            stage_scales(rsc + buf * 2 * kBK, ksb, vsb, Hkv, j * kBK, Smax,
-                         tid);
+        for (int p = 0; p < NP; ++p) {
+            const uint4 u = *reinterpret_cast<const uint4*>(base + off[p]);
+            w[4 * p] = u.x;
+            w[4 * p + 1] = u.y;
+            w[4 * p + 2] = u.z;
+            w[4 * p + 3] = u.w;
         }
+    } else if constexpr (NW == 2) {
+        const uint2 u = *reinterpret_cast<const uint2*>(base + off[0]);
+        w[0] = u.x;
+        w[1] = u.y;
+    } else {
+        w[0] = *reinterpret_cast<const uint32_t*>(base + off[0]);
     }
 }
 
-// shared memory of one block: Q, the bf16 K/V tiles (two of each for a bf16
-// cache, one for narrow codes) and, for narrow codes, the raw ring of code
-// tiles and scales
-template <int HD, class KV>
-constexpr size_t smem_bytes() {
-    constexpr size_t LD = HD + 8;
-    constexpr bool kWide = KV::kBits == 16;
-    const size_t tiles = sizeof(uint16_t) * LD
-        * (kBQ + (kWide ? 4 : 2) * kBK);
-    if (kWide) return tiles;
-    return tiles + 2 * 2 * kBK * code_bytes<KV>(HD)
-        + (KV::kScaled ? 2 * 2 * kBK * sizeof(float) : 0);
+// Trace build (-DBIGDL_PFA_TRACE, tools/bench_attention.py --trace):
+// thread 0 of each of the first 4096 blocks stamps %globaltimer (ns) at
+// 0 its start, 1 q in registers, 2 the loop's end, 3 its partial written
+// (several spans), 4 past the cluster barrier, 5 out written (by the
+// block whose warp 0 writes it), 6 + i tile i's data in (i < 8); read
+// with bigdl_pfa_trace.
+#ifdef BIGDL_PFA_TRACE
+__device__ unsigned long long g_trace[4096][16];
+#define TRACE(k)                                                            \
+    do {                                                                    \
+        if (threadIdx.x == 0 && blockIdx.x < 4096) {                        \
+            unsigned long long t_;                                          \
+            asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));          \
+            g_trace[blockIdx.x][k] = t_;                                    \
+        }                                                                   \
+    } while (0)
+#else
+#define TRACE(k)
+#endif
+
+// all threads of the cluster: release this block's shared-memory writes,
+// acquire the others'
+__device__ __forceinline__ void cluster_sync() {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n"
+                 "barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
-template <int HD, class KV>
-__global__ void __launch_bounds__(kThreads)
-prefill_attention_kernel(const uint16_t* __restrict__ q,   // [B, Sq, H, HD]
-                         const uint8_t* __restrict__ k,    // [B, Smax, Hkv,
-                         const uint8_t* __restrict__ v,    //   HD] codes
-                         const float* __restrict__ ks,     // [B, Smax, Hkv]
-                         const float* __restrict__ vs,     //   (int8/int4)
-                         const int* __restrict__ pos,      // [B]
-                         uint16_t* __restrict__ out,       // [B, Sq, H, HD]
-                         int Sq, int Smax, int H, int Hkv, float scale) {
-    constexpr int LD = HD + 8;           // 16-byte aligned rows; ldmatrix
-                                         // rows fall in distinct banks
-    constexpr int NT = HD / 8;           // 8-wide head-dim tiles of O
-    constexpr bool kWide = KV::kBits == 16;
-    constexpr int RB = (int)code_bytes<KV>(HD);   // code bytes a head row
-    extern __shared__ __align__(16) uint16_t smem[];
-    uint16_t* Qs = smem;                 // [kBQ][LD]
-    uint16_t* Ks = Qs + kBQ * LD;        // [2][kBK][LD] (narrow: [kBK][LD])
-    uint16_t* Vs = Ks + (kWide ? 2 : 1) * kBK * LD;
-    // narrow: [2 buffers][K, V][kBK][RB] codes, then [2][K, V][kBK] scales
-    uint8_t* raw = reinterpret_cast<uint8_t*>(Vs + (kWide ? 2 : 1) * kBK * LD);
-    float* rsc = reinterpret_cast<float*>(raw + 2 * 2 * kBK * RB);
+// the shared address `addr` of this block in block `rank` of the cluster
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, int rank) {
+    uint32_t r;
+    asm("mapa.shared::cluster.u32 %0, %1, %2;"
+        : "=r"(r) : "r"(addr), "r"(rank));
+    return r;
+}
 
-    const int bh = blockIdx.y;
-    const int b = bh / H;
-    const int h = bh - b * H;
-    const int kh = h / (H / Hkv);
-    const int q0 = blockIdx.x * kBQ;
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+    float4 v;
+    asm("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+        : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr));
+    return v;
+}
+
+__device__ __forceinline__ float ex2(float x) {   // 2^x, -inf -> 0
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+template <int KIND, int HD>
+__global__ void __launch_bounds__(kThreads, HD <= 128 ? 2 : 1)
+prefill_attention_kernel(const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap,
+                         const Args a) {
+    using Ge = Geo<KIND, HD>;
+    extern __shared__ __align__(1024) uint8_t smem_raw[];
+    __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages];
+    uint8_t* ring = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+    float* scl = reinterpret_cast<float*>(ring + Ge::kStages * Ge::kStage);
+    uint8_t* qs = ring + (Ge::kRingAll > Ge::kPart ? Ge::kRingAll : Ge::kPart);
+
+    // the block's unit, the last query tiles (most keys) first; the nspan
+    // blocks of a unit are one cluster, span sp its rank. Where no tile of
+    // the call sees more than kWholeTiles key tiles (a first chunk), every
+    // tile is one span: block i takes unit i and the blocks past the units
+    // leave (a leaving block beside each live one put two live blocks on
+    // some SMs and none on others: +2.5 us at Sq 256, pos 0). One block a
+    // tile reads no position here.
+    bool whole = true;
+    if (a.nspan > 1) {
+        int most = 0;
+        for (int i = 0; i < a.B; ++i)
+            most = max(most, min(a.pos[i] + a.Sq, a.S));
+        whole = most <= kWholeTiles * kKT;
+    }
+    const int sp = whole ? 0 : (int)blockIdx.x % a.nspan;
+    const int unit = whole ? (int)blockIdx.x : (int)blockIdx.x / a.nspan;
+    if (unit >= a.nqt * a.Hkv * a.B) return;
+    const int qt = a.nqt - 1 - unit / (a.Hkv * a.B);
+    const int kh = unit / a.B % a.Hkv;
+    const int b = unit % a.B;
+
+    // the tile's visible keys, cut evenly in whole tiles over nsp spans:
+    // at most nspan, and one a kWholeTiles key tiles (rounded up)
+    const int p = a.pos[b];
+    const int q0 = qt * a.QT;
+    const int nvis = max(0, min(p + min(q0 + a.QT, a.Sq), a.S));
+    const int nsp = clampi(
+        ((nvis + kKT - 1) / kKT + kWholeTiles - 1) / kWholeTiles, 1, a.nspan);
+    const int span = max(kKT, ((nvis + nsp - 1) / nsp + kKT - 1) / kKT * kKT);
+    const int live = max(1, (nvis + span - 1) / span);
+    // a tile of one span: the cluster's other blocks have nothing to do
+    if (live == 1 && sp != 0) return;
+    // a span past the visible keys has none (it still takes part in its
+    // cluster's merge, with an empty partial)
+    const int j0 = min(sp * span, nvis);
+    const int j1 = min(j0 + span, nvis);
+    const int ntiles =
+        BIGDL_PFA_PROBE == 3 ? 0 : (j1 - j0 + kKT - 1) / kKT;
+
     const int tid = threadIdx.x;
     const int warp = tid >> 5;
     const int lane = tid & 31;
+    TRACE(0);
+    if (tid == 0) {
+        for (int i = 0; i < Ge::kStages; ++i) {
+            mbar_init(smem_u32(&full[i]), 1 + (Ge::kScaled ? 32 : 0));
+            mbar_init(smem_u32(&empty[i]), kWarps);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+
+    // warp 0 fills the ring: lane 0 arms a stage's barrier with its K and
+    // V boxes; every lane adds two keys' K and V scales by cp.async
+    auto load = [&](int i) {
+        if (BIGDL_PFA_PROBE == 2) return;
+        const int st = i % Ge::kStages;
+        const int jt = j0 + i * kKT;
+        const int row0 = b * a.S;
+        uint8_t* dst = ring + st * Ge::kStage;
+        const uint32_t bar = smem_u32(&full[st]);
+        if (lane == 0) {
+            mbar_expect_tx(bar, Ge::kStage);
+            mbar_arrive(bar);
+#pragma unroll
+            for (int j = 0; j < Ge::kBoxes; ++j) {
+                const int x = kh * Ge::kRow + j * Ge::kW;
+                const int off = j * kKT * Ge::kW;
+                tma_2d(smem_u32(dst + off), &kmap, bar, x, row0 + jt);
+                tma_2d(smem_u32(dst + Ge::kTileBytes + off), &vmap, bar, x,
+                       row0 + jt);
+            }
+        }
+        if constexpr (Ge::kScaled) {
+            float* sd = scl + st * 2 * kKT;
+#pragma unroll
+            for (int h = 0; h < kKT / 32; ++h) {
+                const int key = lane + 32 * h;
+                const bool ok = jt + key < j1;
+                const size_t src = ((size_t)row0 + jt + key) * a.Hkv + kh;
+                cp_async4(sd + key, ok ? a.ks + src : a.ks, ok ? 4 : 0);
+                cp_async4(sd + kKT + key, ok ? a.vs + src : a.vs, ok ? 4 : 0);
+            }
+            cp_async_mbar_arrive(bar);
+        }
+    };
+    // the block's q rows into shared memory, 16 contiguous bytes a thread
+    // (zeros for a row past the tile), where the span has keys; the first
+    // tiles load meanwhile
+    for (int i = j1 > j0 ? tid : kRows * (HD / 8); i < kRows * (HD / 8);
+         i += kThreads) {
+        const int r = i / (HD / 8);
+        const int hh = r / a.QT;
+        const int qq = q0 + r % a.QT;
+        const bool ok = hh < a.G && qq < a.Sq;
+        const uint16_t* src =
+            a.q + (((size_t)b * a.Sq + qq) * a.H + (size_t)kh * a.G + hh) * HD;
+        cp_async16(qs + r * Ge::kQRow + 16 * (i % (HD / 8)),
+                   ok ? src + 8 * (i % (HD / 8)) : a.q, ok ? 16 : 0);
+    }
+    cp_async_commit();
+    if (warp == 0) {
+        for (int i = 0; i < min(ntiles, Ge::kStages - 1); ++i) load(i);
+    }
+
+    // lane (g, t) holds rows r = 16 warp + g and r + 8 of the block (head
+    // r / QT, query q0 + r % QT)
     const int g = lane >> 2;
     const int t = lane & 3;
-
-    const int p = pos[b];
-    const int kend = min(Smax, p + q0 + kBQ);     // keys any row can see
-    const int ntiles = (kend + kBK - 1) / kBK;
-    const size_t krs = (size_t)Hkv * HD;          // codes a cache row
-    const size_t kbase = ((size_t)b * Smax * Hkv + kh) * HD;
-    const uint8_t* kb = k + code_bytes<KV>(kbase);
-    const uint8_t* vb = v + code_bytes<KV>(kbase);
-    // the scale planes' column of this (slot, kv head); unused (and never
-    // formed from a null plane) for the scale-free kinds
-    const size_t sbase = (size_t)b * Smax * Hkv + kh;
-    const float* ksb = KV::kScaled ? ks + sbase : nullptr;
-    const float* vsb = KV::kScaled ? vs + sbase : nullptr;
-
-    stage_rows<HD, LD>(Qs, q + ((size_t)b * Sq * H + h) * HD, (size_t)H * HD,
-                       q0, Sq, tid);
-    stage_kv<HD, LD, KV>(Ks, Vs, raw, rsc, kb, vb, ksb, vsb, krs, Hkv, 0, 0,
-                         Smax, tid);
-    cp_async_commit();
-
-    float o[NT][4];
+    int lim[2];              // last key a row sees, its query's causal edge
+    bool valid[2];
+    size_t rowoff[2];        // the row's q / out offset
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+    for (int c = 0; c < 2; ++c) {
+        const int r = 16 * warp + g + 8 * c;
+        const int hh = r / a.QT;
+        const int qq = q0 + r % a.QT;
+        valid[c] = hh < a.G && qq < a.Sq;
+        lim[c] = p + qq;
+        rowoff[c] = valid[c]
+            ? (((size_t)b * a.Sq + qq) * a.H + (size_t)kh * a.G + hh) * HD
+            : 0;
     }
-    float m[2] = {kNegInf, kNegInf};
-    float l[2] = {0.f, 0.f};
-    // rows g and g + 8 of this warp's 16; query i sees keys <= p + i
-    const int qrow = q0 + warp * 16 + g;
-    const uint16_t* qw = Qs + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
 
-    for (int j = 0; j < ntiles; ++j) {
-        const int buf = j & 1;
-        if (j + 1 < ntiles) {
-            stage_kv<HD, LD, KV>(Ks, Vs, raw, rsc, kb, vb, ksb, vsb, krs,
-                                 Hkv, j + 1, buf ^ 1, Smax, tid);
-            cp_async_commit();
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();
-        const uint16_t* kt = Ks + (kWide ? buf * kBK * LD : 0);
-        const uint16_t* vt = Vs + (kWide ? buf * kBK * LD : 0);
-        if constexpr (!kWide) {
-            const uint8_t* r = raw + buf * 2 * kBK * RB;
-            const float* sc = rsc + buf * 2 * kBK;
-            dequant_tile<KV, HD, LD>(Ks, r, sc, tid);
-            dequant_tile<KV, HD, LD>(Vs, r + kBK * RB, sc + kBK, tid);
-            __syncthreads();
-        }
-
-        // S = Q K^T for this warp's 16 rows and the tile's 64 keys
-        float s[8][4];
+    // q as the A operand: this lane's quarter of the dims of rows g and
+    // g + 8, k step s in kslot_dim order
+    cp_async_wait<0>();
+    __syncthreads();
+    uint32_t qa[Ge::kKSteps][4];
 #pragma unroll
-        for (int n = 0; n < 8; ++n) {
+    for (int c = 0; c < 2; ++c) {
+        uint32_t w[HD / 8];
+        const uint4* src = reinterpret_cast<const uint4*>(
+            qs + (16 * warp + g + 8 * c) * Ge::kQRow + t * (HD / 2));
+#pragma unroll
+        for (int i = 0; i < HD / 32; ++i) {
+            const uint4 u = src[i];
+            w[4 * i] = u.x;
+            w[4 * i + 1] = u.y;
+            w[4 * i + 2] = u.z;
+            w[4 * i + 3] = u.w;
+        }
+#pragma unroll
+        for (int s = 0; s < Ge::kKSteps; ++s) {
+            uint32_t e[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int d = kslot_dim<KIND>(s, i);
+                e[i] = (w[d >> 1] >> (16 * (d & 1))) & 0xffffu;
+            }
+            qa[s][c] = e[0] | (e[1] << 16);        // k slots 2t, 2t + 1
+            qa[s][2 + c] = e[2] | (e[3] << 16);    // 2t + 8, 2t + 9
+        }
+    }
+
+    // O in the C layout of n8 tile i of dims: rows g / g + 8, dims
+    // (2t) HD/8 + i and (2t + 1) HD/8 + i (v_pair's slices); the running
+    // max and sum of the two rows (the sum a lane's share of the keys)
+    float o[Ge::kNT][4];
+#pragma unroll
+    for (int i = 0; i < Ge::kNT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+    float m[2] = {-1e30f, -1e30f};
+    float l[2] = {0.f, 0.f};
+    TRACE(1);
+
+    // this lane's swizzled offsets in a K or V tile, for its first rows:
+    // the swizzle of a row r depends only on r % 8, so rows 8 n on sit
+    // 8 n kW bytes further. K: chunk ch of key g's slice; V: the pieces of
+    // keys 2t and 2t + 1's slices
+    constexpr int kVP = Ge::kVWords >= 4 ? Ge::kVWords / 4 : 1;
+    int kofs[Ge::kChunks][1], vofs[2][kVP];
+#pragma unroll
+    for (int ch = 0; ch < Ge::kChunks; ++ch)
+        kofs[ch][0] = swizzled<Ge::kW, kKT>(g, t * (Ge::kRow / 4) + 16 * ch);
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int pc = 0; pc < kVP; ++pc)
+            vofs[e][pc] = swizzled<Ge::kW, kKT>(2 * t + e,
+                                                g * (Ge::kRow / 8) + 16 * pc);
+
+    for (int i = 0; i < ntiles; ++i) {
+        const int st = i % Ge::kStages;
+        const int jt = j0 + i * kKT;
+        if (warp == 0 && i + Ge::kStages - 1 < ntiles) {
+            // tile i - 1's stage, once every warp has let it go
+            if (i >= 1)
+                mbar_wait(smem_u32(&empty[(i - 1) % Ge::kStages]),
+                          ((i - 1) / Ge::kStages) & 1);
+            load(i + Ge::kStages - 1);
+        }
+        if (BIGDL_PFA_PROBE != 2)
+            mbar_wait(smem_u32(&full[st]), (i / Ge::kStages) & 1);
+        if (i < 8) TRACE(6 + i);
+        const uint8_t* kt = ring + st * Ge::kStage;
+        const uint8_t* vt = kt + Ge::kTileBytes;
+        const float* sc = scl + st * 2 * kKT;
+        if (BIGDL_PFA_PROBE == 1) {
+            o[0][0] += __uint_as_float(
+                *reinterpret_cast<const uint32_t*>(kt + 4 * lane));
+            __syncwarp();
+            if (lane == 0) mbar_arrive(smem_u32(&empty[st]));
+            continue;
+        }
+
+        // S = Q K^T: keys 8 n + g of the tile as B, from this lane's K
+        // slice, 16 bytes of every key at a time, so the kKT / 8 mma of a
+        // k step are independent of each other
+        float s[kKT / 8][4];
+#pragma unroll
+        for (int n = 0; n < kKT / 8; ++n)
 #pragma unroll
             for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-        }
 #pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
-            uint32_t a[4];
-            ldmatrix_x4(a, qw + kk * 16);
+        for (int ch = 0; ch < Ge::kChunks; ++ch) {
+            uint32_t kw[kKT / 8][Ge::kCW];
 #pragma unroll
-            for (int np = 0; np < 4; ++np) {
-                const int key = 16 * np + (lane & 7) + ((lane >> 4) << 3);
-                const int d = kk * 16 + ((lane >> 3) & 1) * 8;
-                uint32_t bq[4];
-                ldmatrix_x4(bq, kt + key * LD + d);
-                mma_bf16(s[2 * np], a, bq[0], bq[1]);
-                mma_bf16(s[2 * np + 1], a, bq[2], bq[3]);
+            for (int n = 0; n < kKT / 8; ++n)
+                lds_at(kw[n], kt + 8 * n * Ge::kW, kofs[ch]);
+#pragma unroll
+            for (int ls = 0; ls < Ge::kChunkSteps; ++ls) {
+#pragma unroll
+                for (int n = 0; n < kKT / 8; ++n) {
+                    uint32_t b0, b1;
+                    k_frag<KIND>(kw[n], ls, b0, b1);
+                    const int ks = ch * Ge::kChunkSteps + ls;
+                    mma_bf16(s[n], qa[ks], b0, b1);
+                }
             }
         }
 
-        // mask, scale, online softmax over the tile (row halves r = 0, 1)
-        float mx[2] = {kNegInf, kNegInf};
+        // mask (past the span, past a row's query) and scale; this lane
+        // holds keys 8 n + 2 t, + 1 of rows g (e 0, 1) and g + 8 (e 2, 3)
+        const int e0 = min(j1 - 1, lim[0]) - jt;
+        const int e1 = min(j1 - 1, lim[1]) - jt;
+        float mx[2] = {-1e30f, -1e30f};
 #pragma unroll
-        for (int n = 0; n < 8; ++n) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int key = j * kBK + 8 * n + 2 * t + (e & 1);
-                const int r = e >> 1;
-                const bool vis = key <= p + qrow + 8 * r && key < Smax;
-                s[n][e] = vis ? s[n][e] * scale : kNegInf;
-                mx[r] = fmaxf(mx[r], s[n][e]);
+        for (int n = 0; n < kKT / 8; ++n) {
+            const int key = 8 * n + 2 * t;
+            float k0 = a.scale_log2, k1 = a.scale_log2;
+            if constexpr (Ge::kScaled) {
+                const float2 f = *reinterpret_cast<const float2*>(sc + key);
+                k0 *= f.x;
+                k1 *= f.y;
             }
+            s[n][0] = key <= e0 ? s[n][0] * k0 : kNegInf;
+            s[n][1] = key + 1 <= e0 ? s[n][1] * k1 : kNegInf;
+            s[n][2] = key <= e1 ? s[n][2] * k0 : kNegInf;
+            s[n][3] = key + 1 <= e1 ? s[n][3] * k1 : kNegInf;
+            mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+            mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
         }
-        float corr[2], psum[2] = {0.f, 0.f}, mu[2];
+        float corr[2];
+        bool moved = false;
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-            const float m_new = fmaxf(m[r], mx[r]);
-            mu[r] = m_new == kNegInf ? 0.f : m_new;   // no key seen yet
-            corr[r] = expf(m[r] - mu[r]);
-            m[r] = m_new;
+        for (int c = 0; c < 2; ++c) {
+            mx[c] = fmaxf(mx[c], __shfl_xor_sync(0xffffffffu, mx[c], 1));
+            mx[c] = fmaxf(mx[c], __shfl_xor_sync(0xffffffffu, mx[c], 2));
+            const float m_new = fmaxf(m[c], mx[c]);
+            corr[c] = ex2(m[c] - m_new);
+            moved = moved || corr[c] != 1.f;
+            m[c] = m_new;
         }
-        uint32_t pa[4][4];                // P as bf16 A fragments, 16 keys each
+        // P as bf16 A fragments of 16 keys each, v_scale folded in before
+        // the rounding; l takes the unscaled probabilities
+        uint32_t pa[kKT / 16][4];
+        float ps[2] = {0.f, 0.f};
 #pragma unroll
-        for (int n = 0; n < 8; ++n) {
-            float pr[4];
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                pr[e] = expf(s[n][e] - mu[e >> 1]);
-                psum[e >> 1] += pr[e];
+        for (int n = 0; n < kKT / 8; ++n) {
+            float v0 = 1.f, v1 = 1.f;
+            if constexpr (Ge::kScaled) {
+                const float2 f =
+                    *reinterpret_cast<const float2*>(sc + kKT + 8 * n + 2 * t);
+                v0 = f.x;
+                v1 = f.y;
             }
-            pa[n >> 1][2 * (n & 1)] = pack_bf16x2(pr[0], pr[1]);
-            pa[n >> 1][2 * (n & 1) + 1] = pack_bf16x2(pr[2], pr[3]);
+            const float p0 = ex2(s[n][0] - m[0]);
+            const float p1 = ex2(s[n][1] - m[0]);
+            const float p2 = ex2(s[n][2] - m[1]);
+            const float p3 = ex2(s[n][3] - m[1]);
+            ps[0] += p0 + p1;
+            ps[1] += p2 + p3;
+            pa[n >> 1][2 * (n & 1)] = pack_bf16x2(p0 * v0, p1 * v1);
+            pa[n >> 1][2 * (n & 1) + 1] = pack_bf16x2(p2 * v0, p3 * v1);
         }
+        l[0] = l[0] * corr[0] + ps[0];
+        l[1] = l[1] * corr[1] + ps[1];
+        if (__any_sync(0xffffffffu, moved)) {
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
-            psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
-            l[r] = l[r] * corr[r] + psum[r];
-        }
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-            o[n][0] *= corr[0];
-            o[n][1] *= corr[0];
-            o[n][2] *= corr[1];
-            o[n][3] *= corr[1];
+            for (int d = 0; d < Ge::kNT; ++d) {
+                o[d][0] *= corr[0];
+                o[d][1] *= corr[0];
+                o[d][2] *= corr[1];
+                o[d][3] *= corr[1];
+            }
         }
 
-        // O += P V
+        // O += P V: V's B fragments of keys 2t, 2t + 1 (b0) and 2t + 8,
+        // 2t + 9 (b1) of each 16, dims of this lane's V slice
 #pragma unroll
-        for (int ks_ = 0; ks_ < 4; ++ks_) {
+        for (int kk = 0; kk < kKT / 16; ++kk) {
+            uint32_t v0[Ge::kVWords], v1[Ge::kVWords], v2[Ge::kVWords],
+                v3[Ge::kVWords];
+            lds_at(v0, vt + 16 * kk * Ge::kW, vofs[0]);
+            lds_at(v1, vt + 16 * kk * Ge::kW, vofs[1]);
+            lds_at(v2, vt + (16 * kk + 8) * Ge::kW, vofs[0]);
+            lds_at(v3, vt + (16 * kk + 8) * Ge::kW, vofs[1]);
 #pragma unroll
-            for (int dp = 0; dp < HD / 16; ++dp) {
-                uint32_t bv[4];
-                ldmatrix_x4_trans(
-                    bv, vt + (16 * ks_ + (lane & 7) + ((lane >> 3) & 1) * 8)
-                                 * LD
-                            + 16 * dp + (lane >> 4) * 8);
-                mma_bf16(o[2 * dp], pa[ks_], bv[0], bv[1]);
-                mma_bf16(o[2 * dp + 1], pa[ks_], bv[2], bv[3]);
-            }
+            for (int d = 0; d < Ge::kNT; ++d)
+                mma_bf16(o[d], pa[kk], v_pair<KIND>(v0, v1, d),
+                         v_pair<KIND>(v2, v3, d));
         }
-        __syncthreads();                 // this tile's buffers free for reuse
+        __syncwarp();
+        if (lane == 0) mbar_arrive(smem_u32(&empty[st]));
     }
 
-    const float inv0 = 1.f / (l[0] == 0.f ? 1.f : l[0]);
-    const float inv1 = 1.f / (l[1] == 0.f ? 1.f : l[1]);
-    uint16_t* o0 = out + (((size_t)b * Sq + qrow) * H + h) * HD + 2 * t;
-    uint16_t* o1 = o0 + (size_t)8 * H * HD;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-        *reinterpret_cast<uint32_t*>(o0 + 8 * n) =
-            pack_bf16x2(o[n][0] * inv0, o[n][1] * inv0);
-        *reinterpret_cast<uint32_t*>(o1 + 8 * n) =
-            pack_bf16x2(o[n][2] * inv1, o[n][3] * inv1);
+    for (int c = 0; c < 2; ++c) {
+        l[c] += __shfl_xor_sync(0xffffffffu, l[c], 1);
+        l[c] += __shfl_xor_sync(0xffffffffu, l[c], 2);
     }
+    // this lane's dims of row c: [d0, d0 + HD/4), the first HD/8 in
+    // o[.][2c], the rest in o[.][2c + 1]
+    const int d0 = 2 * t * (HD / 8);
+    auto val = [&](int c, int d) -> float {
+        return d < HD / 8 ? o[d][2 * c] : o[d - HD / 8][2 * c + 1];
+    };
+    auto store = [&](int c, const float (&num)[HD / 4], float den) {
+        if (!valid[c]) return;
+        const float r = __frcp_rn(den > 0.f ? den : 1.f);
+        uint16_t* dst = a.out + rowoff[c] + d0;
+#pragma unroll
+        for (int d = 0; d < HD / 4; d += 8) {
+            uint4 u;
+            u.x = pack_bf16x2(num[d] * r, num[d + 1] * r);
+            u.y = pack_bf16x2(num[d + 2] * r, num[d + 3] * r);
+            u.z = pack_bf16x2(num[d + 4] * r, num[d + 5] * r);
+            u.w = pack_bf16x2(num[d + 6] * r, num[d + 7] * r);
+            *reinterpret_cast<uint4*>(dst + d) = u;
+        }
+    };
+    TRACE(2);
+    if (live == 1) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+            float num[HD / 4];
+#pragma unroll
+            for (int d = 0; d < HD / 4; ++d) num[d] = val(c, d);
+            store(c, num, l[c]);
+        }
+        TRACE(5);
+        return;
+    }
+
+    // several spans: each block leaves its partial in its own shared
+    // memory in register order; after a cluster barrier the warps of the
+    // cluster merge the rows of their own warp index w in the blocks with
+    // w % nspan == their rank, reading the live spans' partials in span
+    // order through distributed shared memory, then a second barrier keeps
+    // every block's memory until the reads are done. No global workspace,
+    // no ticket.
+    float4* part = reinterpret_cast<float4*>(ring);   // [warp][1 + HD/8][32]
+    auto own = [&](int j) -> float4 {
+        const int c = 4 * j / (HD / 4);
+        const int d = 4 * j % (HD / 4);
+        return make_float4(val(c, d), val(c, d + 1), val(c, d + 2),
+                           val(c, d + 3));
+    };
+    __syncthreads();                     // every warp is done with the ring
+    float4* mine = part + warp * (1 + HD / 8) * 32 + lane;
+    mine[0] = make_float4(m[0], m[1], l[0], l[1]);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) mine[(1 + j) * 32] = own(j);
+    TRACE(3);
+    cluster_sync();
+    TRACE(4);
+    if (warp % a.nspan == sp) {
+        // the spans in span order, each rescaled to the running max
+        float mx[2] = {-1e30f, -1e30f}, den[2] = {0.f, 0.f};
+        float num[2][HD / 4];
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+            for (int d = 0; d < HD / 4; ++d) num[c][d] = 0.f;
+        const uint32_t at = smem_u32(mine);
+#pragma unroll 1
+        for (int q = 0; q < live; ++q) {
+            const uint32_t src = mapa(at, q);
+            float4 x[HD / 8];
+            const float4 ml = ld_cluster4(src);
+#pragma unroll
+            for (int j = 0; j < HD / 8; ++j)
+                x[j] = ld_cluster4(src + 16 * 32 * (1 + j));
+            const float mq[2] = {ml.x, ml.y}, lq[2] = {ml.z, ml.w};
+            float f_old[2], f_new[2];
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+                const float m_new = fmaxf(mx[c], mq[c]);
+                f_old[c] = exp2f(mx[c] - m_new);
+                f_new[c] = exp2f(mq[c] - m_new);
+                den[c] = den[c] * f_old[c] + lq[c] * f_new[c];
+                mx[c] = m_new;
+            }
+#pragma unroll
+            for (int j = 0; j < HD / 8; ++j) {
+                const int c = 4 * j / (HD / 4);
+                const int d = 4 * j % (HD / 4);
+                num[c][d] = num[c][d] * f_old[c] + x[j].x * f_new[c];
+                num[c][d + 1] = num[c][d + 1] * f_old[c] + x[j].y * f_new[c];
+                num[c][d + 2] = num[c][d + 2] * f_old[c] + x[j].z * f_new[c];
+                num[c][d + 3] = num[c][d + 3] * f_old[c] + x[j].w * f_new[c];
+            }
+        }
+        store(0, num[0], den[0]);
+        store(1, num[1], den[1]);
+        TRACE(5);
+    }
+    cluster_sync();
 }
 
-template <int HD, class KV>
-int launch(const void* q, const void* k, const void* v, const void* ks,
-           const void* vs, const void* pos, void* out, int B, int Sq,
-           int Smax, int H, int Hkv, float scale, cudaStream_t st) {
-    const size_t smem = smem_bytes<HD, KV>();
-    cudaError_t e = cudaFuncSetAttribute(
-        prefill_attention_kernel<HD, KV>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    dim3 grid(Sq / kBQ, B * H);
-    prefill_attention_kernel<HD, KV><<<grid, kThreads, smem, st>>>(
-        (const uint16_t*)q, (const uint8_t*)k, (const uint8_t*)v,
-        (const float*)ks, (const float*)vs, (const int*)pos, (uint16_t*)out,
-        Sq, Smax, H, Hkv, scale);
-    return (int)cudaGetLastError();
+// The TMA map of one code plane, viewed as [rows, Hkv * row bytes] in
+// boxes of 64 rows of kW bytes with the kW-byte swizzle. Returns 0 or an
+// error code (tma.cuh).
+template <class Ge>
+int encode_plane(CUtensorMap* m, const void* plane, long long rows,
+                 int hkv) {
+    const EncodeTiled enc = encoder();
+    if (enc == nullptr) return kNoEncoder;
+    const cuuint64_t dims[2] = {(cuuint64_t)hkv * Ge::kRow, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)hkv * Ge::kRow};
+    const cuuint32_t box[2] = {(cuuint32_t)Ge::kW, (cuuint32_t)kKT};
+    const cuuint32_t ones[2] = {1, 1};
+    const CUresult r = enc(
+        m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(plane), dims,
+        strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+        Ge::kW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+        : Ge::kW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                       : CU_TENSOR_MAP_SWIZZLE_32B,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? 0 : kEncodeError + (int)r;
 }
 
-template <class KV>
-int launch_hd(int hd, const void* q, const void* k, const void* v,
-              const void* ks, const void* vs, const void* pos, void* out,
-              int B, int Sq, int Smax, int H, int Hkv, float scale,
+template <int KIND, int HD>
+int launch_one(const Args& a, const void* k, const void* v,
+               cudaStream_t st) {
+    using Ge = Geo<KIND, HD>;
+    auto kern = prefill_attention_kernel<KIND, HD>;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Ge::kSmem);
+    if (attr != cudaSuccess) return (int)attr;
+    CUtensorMap kmap, vmap;
+    const long long rows = (long long)a.B * a.S;
+    int err = encode_plane<Ge>(&kmap, k, rows, a.Hkv);
+    if (err == 0) err = encode_plane<Ge>(&vmap, v, rows, a.Hkv);
+    if (err != 0) return err;
+    // the nspan blocks of a query tile are one cluster
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(a.nqt * a.nspan * a.Hkv * a.B);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = Ge::kSmem;
+    cfg.stream = st;
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = a.nspan;
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = 1;
+    cfg.attrs = cluster;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, kmap, vmap, a);
+    return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+template <int KIND>
+int launch_hd(int hd, const Args& a, const void* k, const void* v,
               cudaStream_t st) {
     switch (hd) {
-        case 64:
-            return launch<64, KV>(q, k, v, ks, vs, pos, out, B, Sq, Smax, H,
-                                  Hkv, scale, st);
-        case 128:
-            return launch<128, KV>(q, k, v, ks, vs, pos, out, B, Sq, Smax, H,
-                                   Hkv, scale, st);
-        case 256:
-            return launch<256, KV>(q, k, v, ks, vs, pos, out, B, Sq, Smax, H,
-                                   Hkv, scale, st);
-        default:
-            return (int)cudaErrorInvalidValue;
+        case 64: return launch_one<KIND, 64>(a, k, v, st);
+        case 128: return launch_one<KIND, 128>(a, k, v, st);
+        case 256: return launch_one<KIND, 256>(a, k, v, st);
+        default: return (int)cudaErrorInvalidValue;
     }
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success). Sq must be a
-// multiple of 64; hd one of 64, 128, 256; kind a KvKind (kv_storage.cuh),
-// with ks/vs the scale planes of int8/int4 (may be null otherwise).
+// Returns the cudaError_t of the launch (0 on success) or an error code of
+// csrc/tma.cuh (a tensor map that did not encode). hd is 64, 128 or 256;
+// kind a KvKind (kv_storage.cuh), with ks/vs the scale planes of int8/int4
+// (may be null otherwise); H / Hkv <= 16. A block takes 64 rows: 64 / G
+// queries (G = H / Hkv) of the G heads of one kv head, so a launch has
+// nqt = ceil(Sq / (64 / G)) query tiles, each taking nspan blocks (1..8),
+// the blocks of one cluster, of which those its keys need take part.
 extern "C" int bigdl_prefill_attention(const void* q, const void* k,
                                        const void* v, const void* ks,
                                        const void* vs, const void* pos,
                                        void* out, int B, int Sq, int Smax,
                                        int H, int Hkv, int hd, int kind,
-                                       float scale, void* stream) {
+                                       int nspan, float scale, void* stream) {
     const bool scaled = kind == KV_INT8 || kind == KV_INT4;
-    if (B < 1 || Sq < kBQ || Sq % kBQ != 0 || Smax < 1 || Hkv < 1 ||
-        H % Hkv != 0 || (scaled && (ks == nullptr || vs == nullptr))) {
+    if (B < 1 || Sq < 1 || Smax < 1 || Hkv < 1 || H % Hkv != 0 ||
+        H / Hkv > kMaxGroup || nspan < 1 || nspan > kMaxSpans ||
+        (scaled && (ks == nullptr || vs == nullptr))) {
         return (int)cudaErrorInvalidValue;
     }
+    const int G = H / Hkv;
+    const int QT = kRows / G;
+    const Args a{(const uint16_t*)q, (const float*)ks, (const float*)vs,
+                 (const int*)pos, (uint16_t*)out, B, Sq, Smax, H, Hkv, G, QT,
+                 (Sq + QT - 1) / QT, nspan, scale * kLog2e};
     cudaStream_t st = (cudaStream_t)stream;
     switch (kind) {
-        case KV_BF16:
-            return launch_hd<Kv<KV_BF16>>(hd, q, k, v, ks, vs, pos, out, B,
-                                          Sq, Smax, H, Hkv, scale, st);
-        case KV_E5M2:
-            return launch_hd<Kv<KV_E5M2>>(hd, q, k, v, ks, vs, pos, out, B,
-                                          Sq, Smax, H, Hkv, scale, st);
-        case KV_INT8:
-            return launch_hd<Kv<KV_INT8>>(hd, q, k, v, ks, vs, pos, out, B,
-                                          Sq, Smax, H, Hkv, scale, st);
-        case KV_INT4:
-            return launch_hd<Kv<KV_INT4>>(hd, q, k, v, ks, vs, pos, out, B,
-                                          Sq, Smax, H, Hkv, scale, st);
-        default:
-            return (int)cudaErrorInvalidValue;
+        case KV_BF16: return launch_hd<KV_BF16>(hd, a, k, v, st);
+        case KV_E5M2: return launch_hd<KV_E5M2>(hd, a, k, v, st);
+        case KV_INT8: return launch_hd<KV_INT8>(hd, a, k, v, st);
+        case KV_INT4: return launch_hd<KV_INT4>(hd, a, k, v, st);
+        default: return (int)cudaErrorInvalidValue;
     }
 }
+
+#ifdef BIGDL_PFA_TRACE
+extern "C" int bigdl_pfa_trace(void* host) {
+    return (int)cudaMemcpyFromSymbol(host, g_trace, sizeof(g_trace));
+}
+extern "C" int bigdl_pfa_trace_clear() {
+    static unsigned long long zero[4096][16];
+    return (int)cudaMemcpyToSymbol(g_trace, zero, sizeof(g_trace));
+}
+#endif

@@ -1,5 +1,6 @@
 // TMA and mbarrier helpers of the Hopper kernels (the dequant GEMM body
-// dequant_wgmma.cuh and the decode attention body decode_attention.cuh):
+// dequant_wgmma.cuh and the attention bodies decode_attention.cuh and
+// prefill_attention.cu):
 // barrier init / arrive / expect-tx / wait, 2-D tensor copies completing
 // on a barrier, and the host's tensor-map encoder, looked up through the
 // CUDA runtime (cudaGetDriverEntryPoint) so no build links -lcuda.
@@ -93,8 +94,57 @@ inline EncodeTiled encoder() {
 }
 
 
+// the barrier's current phase also waits for this thread's cp.async
+// copies issued so far (an arrival of its own: count it in the barrier's
+// init)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
+                 :: "r"(bar) : "memory");
+}
+
 // async-proxy copies (TMA) into shared memory after this thread's generic
 // writes to it
 __device__ __forceinline__ void fence_proxy_async() {
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Reads of a tile that TMA laid out as boxes of ROWS rows of W bytes (W
+// 128, 64 or 32) with the W-byte swizzle. Byte x of row r: the box of x,
+// row r at r * W, then 16-byte chunk bits 4.. xor'ed with row bits 7..
+template <int W, int ROWS>
+__device__ __forceinline__ int swizzled(int r, int x) {
+    const int a = (x / W) * (ROWS * W) + r * W + x % W;
+    return a ^ ((a >> 3) & (W - 16));
+}
+
+// NW words of row r of such a tile from byte x0 on (16-, 8- or 4-byte
+// pieces, each inside one swizzled chunk)
+template <int W, int ROWS, int NW>
+__device__ __forceinline__ void lds_swizzled(uint32_t (&w)[NW],
+                                             const uint8_t* t, int r, int x0) {
+    static_assert(W % 16 == 0, "a piece stays inside one chunk");
+    if constexpr (NW % 4 == 0) {
+#pragma unroll
+        for (int i = 0; i < NW; i += 4) {
+            const uint4 u = *reinterpret_cast<const uint4*>(
+                t + swizzled<W, ROWS>(r, x0 + 4 * i));
+            w[i] = u.x;
+            w[i + 1] = u.y;
+            w[i + 2] = u.z;
+            w[i + 3] = u.w;
+        }
+    } else if constexpr (NW % 2 == 0) {
+#pragma unroll
+        for (int i = 0; i < NW; i += 2) {
+            const uint2 u = *reinterpret_cast<const uint2*>(
+                t + swizzled<W, ROWS>(r, x0 + 4 * i));
+            w[i] = u.x;
+            w[i + 1] = u.y;
+        }
+    } else {
+#pragma unroll
+        for (int i = 0; i < NW; ++i)
+            w[i] = *reinterpret_cast<const uint32_t*>(
+                t + swizzled<W, ROWS>(r, x0 + 4 * i));
+    }
 }

@@ -289,6 +289,14 @@ def test_built_set_keeps_every_earlier_geometry():
     # the body builds every group to 8 at hd <= 256, to 16 at hd <= 128
     for g, slices in da._DECODE_BUILT:
         assert g <= (16 if slices == 1 else 8)
+    # B4 stays built at hd 64 / 128 / 256 for all four storage kinds
+    from bigdl_tpu_torch.ops.cuda import prefill_attention as pa
+    assert set(pa.HEAD_DIMS) >= {64, 128, 256}
+    src = _src("prefill_attention.cu")
+    for hd in (64, 128, 256):
+        assert f"case {hd}: return launch_one<KIND, {hd}>" in src
+    for kind in ("KV_BF16", "KV_E5M2", "KV_INT8", "KV_INT4"):
+        assert f"case {kind}: return launch_hd<{kind}>" in src
 
 
 # ---------------------------------------------------------------------------
