@@ -42,7 +42,8 @@ from bigdl_tpu_torch.ops.moe_dispatch import moe_mlp_ragged
 from bigdl_tpu_torch.ops.norms import rms_norm
 from bigdl_tpu_torch.ops.paged import (PagedKVCache, init_paged_cache,
                                        paged_update_layer)
-from bigdl_tpu_torch.ops.quant import QTensor, concat_qtensors_n
+from bigdl_tpu_torch.ops.quant import (QTensor, concat_qtensors_n,
+                                       split_qtensor_n)
 from bigdl_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rope_freqs
 
 
@@ -180,6 +181,45 @@ def merge_projections(params: Dict[str, Any], cfg: LlamaConfig
             for nm in names:
                 new.pop(nm)
             changed = True
+    if not changed:
+        return params
+    return {**params, "layers": new}
+
+
+def unmerge_projections(params: Dict[str, Any], cfg: LlamaConfig
+                        ) -> Dict[str, Any]:
+    """Inverse of `merge_projections` (exact slicing; each part is made
+    contiguous and the merged leaf dropped)."""
+    layers = params.get("layers")
+    if not isinstance(layers, dict):
+        return params
+
+    def split(w, sizes):
+        if isinstance(w, QTensor):
+            return [QTensor(p.data.contiguous(), p.scale.contiguous(),
+                            None if p.zero is None else p.zero.contiguous(),
+                            p.qtype, p.shape, p.layout)
+                    for p in split_qtensor_n(w, sizes)]
+        return [p.contiguous() for p in torch.split(w, list(sizes), dim=-1)]
+
+    new = dict(layers)
+    changed = False
+    h, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.hd
+    for merged, names in (("qkv_proj", ("q_proj", "k_proj", "v_proj")),
+                          ("gate_up_proj", ("gate_proj", "up_proj"))):
+        if merged not in new:
+            continue
+        w = new.pop(merged)
+        n = w.shape[1] if isinstance(w, QTensor) else w.shape[-1]
+        sizes = ((h * hd, hkv * hd, hkv * hd) if merged == "qkv_proj"
+                 else (n // 2, n // 2))
+        for nm, part in zip(names, split(w, sizes)):
+            new[nm] = part
+        bias = new.pop(f"{merged}_bias", None)
+        if bias is not None:
+            for nm, part in zip(names, split(bias, sizes)):
+                new[f"{nm}_bias"] = part
+        changed = True
     if not changed:
         return params
     return {**params, "layers": new}
@@ -418,6 +458,66 @@ def forward_paged(params: Dict[str, Any], cfg: LlamaConfig,
     logits = _run(params, cfg, tokens, cache, compute_dtype, last_only,
                   block_tables)
     return logits, cache.reset_pos(cache.pos + tokens.shape[1])
+
+
+# -- HF checkpoint -> parameter dict (the JAX package's conversion) ----------
+
+_LAYER_LINEARS = {
+    "self_attn.q_proj": "q_proj",
+    "self_attn.k_proj": "k_proj",
+    "self_attn.v_proj": "v_proj",
+    "self_attn.o_proj": "o_proj",
+    "mlp.gate_proj": "gate_proj",
+    "mlp.up_proj": "up_proj",
+    "mlp.down_proj": "down_proj",
+}
+
+
+def _llama_map(acc, name: str, w) -> None:
+    """HF llama/mistral-style tensor names -> parameter keys."""
+    if name in ("model.embed_tokens.weight", "transformer.wte.weight"):
+        acc.top["embed_tokens"] = acc.dense(w)
+    elif name == "model.norm.weight":
+        acc.top["norm"] = acc.dense(w)
+    elif name == "model.norm.bias":
+        acc.top["norm_bias"] = acc.dense(w)
+    elif name == "lm_head.weight":
+        acc.top["lm_head"] = acc.linear(name, w)
+    elif name == "lm_head.bias":
+        acc.top["lm_head_bias"] = acc.dense(w)
+    elif name.startswith("model.layers."):
+        parts = name.split(".")
+        idx = int(parts[2])
+        sub = ".".join(parts[3:-1])   # e.g. self_attn.q_proj
+        leaf = parts[-1]              # weight | bias
+        if sub in _LAYER_LINEARS:
+            key = _LAYER_LINEARS[sub]
+            if leaf == "weight":
+                acc.put(key, idx, acc.linear(name, w))
+            else:
+                acc.put(f"{key}_bias", idx, acc.dense(w))
+        elif sub in ("input_layernorm", "post_attention_layernorm",
+                     "pre_feedforward_layernorm",
+                     "post_feedforward_layernorm"):
+            acc.put(sub if leaf == "weight" else f"{sub}_bias", idx,
+                    acc.dense(w))
+        # rotary_emb.inv_freq etc. are derived, skip
+
+
+def convert_hf_params(tensors, cfg: LlamaConfig,
+                      qtype: Optional[str] = "sym_int4",
+                      compute_dtype=torch.bfloat16,
+                      modules_to_not_convert: Tuple[str, ...] = (),
+                      imatrix=None, device="cuda") -> Dict[str, Any]:
+    """The parameter dict from HF-named (name, tensor) pairs, each linear
+    quantized on `device` as it arrives (``models/convert_base.py``);
+    qtype None or a float qtype keeps dense weights in compute_dtype."""
+    from bigdl_tpu_torch.models.convert_base import make_convert
+
+    return make_convert(_llama_map)(
+        tensors, cfg, qtype=qtype, compute_dtype=compute_dtype,
+        modules_to_not_convert=modules_to_not_convert, imatrix=imatrix,
+        device=device)
 
 
 # the registry's and the low-bit manifest's name of this family

@@ -12,8 +12,9 @@ Attention, embedding, norms and lm_head are the llama module's: a layer is
 llama's decoder layer, whose MLP sees the ``router`` and runs the sparse-MoE
 MLP (``llama._moe_mlp``: gather, ragged through kernel B6, or dense). The
 JAX family has no paged forward, so neither has this one: the engine's
-paged mode refuses it. Training (``forward_train``) and checkpoint
-conversion (``convert_hf_params``) are not ported.
+paged mode refuses it. ``convert_hf_params`` builds the expert stacks
+from an HF checkpoint, quantized or dense bf16; training
+(``forward_train``) is not ported.
 """
 
 from __future__ import annotations
@@ -64,6 +65,54 @@ def forward_last_token(params, cfg: MixtralConfig, tokens, cache: KVCache,
                        compute_dtype=torch.bfloat16):
     """Prefill variant of `forward` with lm_head on the final position."""
     return forward(params, cfg, tokens, cache, compute_dtype, last_only=True)
+
+
+_ATTN = {"self_attn.q_proj": "q_proj", "self_attn.k_proj": "k_proj",
+         "self_attn.v_proj": "v_proj", "self_attn.o_proj": "o_proj"}
+_EXPERTS = {"w1": "experts_gate", "w3": "experts_up", "w2": "experts_down"}
+
+
+def _mixtral_map(acc, name: str, w) -> None:
+    """HF MixtralForCausalLM tensor names -> parameter keys: the router
+    (``block_sparse_moe.gate`` [E, D]) stays dense as [D, E]; experts.M.
+    {w1, w3} [F, D] and w2 [D, F] fill the [L, E, ...] stacks."""
+    if name == "model.embed_tokens.weight":
+        acc.top["embed_tokens"] = acc.dense(w)
+    elif name == "model.norm.weight":
+        acc.top["norm"] = acc.dense(w)
+    elif name == "lm_head.weight":
+        acc.top["lm_head"] = acc.linear(name, w)
+    elif name.startswith("model.layers."):
+        parts = name.split(".")
+        idx = int(parts[2])
+        sub = ".".join(parts[3:-1])
+        if sub in _ATTN:
+            acc.put(_ATTN[sub], idx, acc.linear(name, w))
+        elif sub in ("input_layernorm", "post_attention_layernorm"):
+            acc.put(sub, idx, acc.dense(w))
+        elif sub == "block_sparse_moe.gate":
+            acc.put("router", idx, acc.dense(w.t()))
+        elif sub.startswith("block_sparse_moe.experts."):
+            _, _, eidx, wname = sub.split(".")
+            acc.put(_EXPERTS[wname], (idx, int(eidx)), acc.linear(name, w),
+                    lead=(acc.L, acc.cfg.num_local_experts))
+
+
+def convert_hf_params(tensors, cfg: MixtralConfig,
+                      qtype: Optional[str] = "sym_int4",
+                      compute_dtype=torch.bfloat16,
+                      modules_to_not_convert: Tuple[str, ...] = (),
+                      imatrix=None, device="cuda") -> Dict[str, Any]:
+    """HF Mixtral tensors -> the parameter dict with [L, E, ...] expert
+    stacks (the JAX package's ``convert_hf_params``), each expert
+    quantized on `device` as it arrives and written into its stack, or
+    kept dense in compute_dtype for a float load."""
+    from bigdl_tpu_torch.models.convert_base import make_convert
+
+    return make_convert(_mixtral_map)(
+        tensors, cfg, qtype=qtype, compute_dtype=compute_dtype,
+        modules_to_not_convert=modules_to_not_convert, imatrix=imatrix,
+        device=device)
 
 
 # the registry's and the low-bit manifest's name of this family

@@ -22,6 +22,7 @@ LAUNCHES: Dict[str, int] = {
     **{name: 0 for name in DEQUANT_KERNELS},
     **{name: 0 for name in ATTENTION_KERNELS},
     "ragged_expert_matmul": 0,
+    "ragged_expert_matmul_dense": 0,
     **{f"{name}_{kind}": 0 for name in ATTENTION_KERNELS
        for kind in QUANT_KV_KINDS},
 }

@@ -216,9 +216,10 @@ def _codebook_encode(code: np.ndarray, xn: torch.Tensor) -> torch.Tensor:
     sorted_code = code[order]
     bounds = (sorted_code[1:] + sorted_code[:-1]) / 2.0
     b = torch.from_numpy(np.ascontiguousarray(bounds)).to(xn.device)
-    idx = torch.searchsorted(b, xn.contiguous())
-    perm = torch.from_numpy(order.astype(np.int64)).to(xn.device)
-    return perm[idx].to(torch.uint8)
+    idx = torch.searchsorted(b, xn.contiguous(), out_int32=True)
+    del xn                                   # the caller's temporary
+    perm = torch.from_numpy(order.astype(np.uint8)).to(idx.device)
+    return perm[idx]
 
 
 def quantize(x: torch.Tensor, qtype: str) -> QTensor:
@@ -244,7 +245,10 @@ def quantize(x: torch.Tensor, qtype: str) -> QTensor:
         half = float(1 << (qt.bits - 1))
         d = mx / -half
         inv = _safe_inv(d)
-        q = torch.clamp(torch.round(xb * inv) + half, 0, 2 * half - 1)
+        # in place: one f32 temporary beside x (a load quantizes on the
+        # device, where these transients are its peak memory)
+        q = xb * inv
+        q.round_().add_(half).clamp_(0, 2 * half - 1)
         q = q.reshape(kp, n).to(torch.uint8)
         scale = d.reshape(nblk, n).to(torch.bfloat16)
         if qt.bits == 4:
@@ -261,7 +265,8 @@ def quantize(x: torch.Tensor, qtype: str) -> QTensor:
         # where the quotient lands on a bf16 rounding midpoint
         d = (mxv - mn) * float(np.float32(1.0) / np.float32(levels))
         inv = _safe_inv(d)
-        q = torch.clamp(torch.round((xb - mn) * inv), 0, levels)
+        q = xb - mn
+        q.mul_(inv).round_().clamp_(0, levels)
         q = q.reshape(kp, n).to(torch.uint8)
         scale = d.reshape(nblk, n).to(torch.bfloat16)
         zero = mn.reshape(nblk, n).to(torch.bfloat16)

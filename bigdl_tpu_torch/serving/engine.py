@@ -5,7 +5,7 @@ KV storage kind).
 Kept: the public surface of ``SamplingParams`` (max_tokens, temperature,
 top_k, top_p, stop_token_ids, seed), ``RequestOutput`` and
 ``EngineConfig`` (max_batch, max_seq, prefill_bucket, prefill_chunk,
-kv_page_size, kv_pages, prefix_sharing, kv_cache_dtype), and
+kv_page_size, kv_pages, prefix_sharing, kv_cache_dtype, kv_quantized), and
 ``add_request`` / ``step`` / ``get_outputs`` / ``has_unfinished`` /
 ``generate`` / ``reset_prefix_cache``. Inside:
 
@@ -105,8 +105,11 @@ class EngineConfig:
     # requests through a radix tree; "off" keeps every page private
     prefix_sharing: Optional[str] = None
     # KV storage: "bf16", "fp8_e5m2", "int8" or "int4" (None defers to
-    # $BIGDL_TPU_TORCH_KV_CACHE_DTYPE, default bf16)
+    # kv_quantized, then to $BIGDL_TPU_TORCH_KV_CACHE_DTYPE, default bf16)
     kv_cache_dtype: Optional[str] = None
+    # deprecated: True stores fp8_e5m2 where kv_cache_dtype is None or
+    # "bf16" (the JAX engine's precedence); a non-bf16 kv_cache_dtype wins
+    kv_quantized: bool = False
 
 
 class _Slot:
@@ -134,6 +137,20 @@ class _Admission:
     chunk: int
     shared_pages: Optional[List[int]] = None
     new_pages: Optional[List[int]] = None
+
+
+def engine_kv_cache_dtype(ce: EngineConfig, default: str) -> str:
+    """The KV storage an engine config asks for, with the JAX engine's
+    precedence: a ``kv_cache_dtype`` other than bf16 wins; otherwise
+    ``kv_quantized=True`` gives fp8_e5m2; otherwise ``kv_cache_dtype``,
+    or `default` (the flag) where it is None."""
+    if ce.kv_cache_dtype is not None:
+        spec = resolve_kv_cache_dtype(ce.kv_cache_dtype)
+        if spec != "bf16" or not ce.kv_quantized:
+            return spec
+    if ce.kv_quantized:
+        return resolve_kv_cache_dtype(True)
+    return resolve_kv_cache_dtype(default)
 
 
 def sample_rows(lg: torch.Tensor, temps: torch.Tensor, top_ks: torch.Tensor,
@@ -204,9 +221,7 @@ class LLMEngine:
         sharing = resolve_prefix_sharing(
             ce.prefix_sharing if ce.prefix_sharing is not None
             else env.prefix_sharing)
-        self.kv_cache_dtype = resolve_kv_cache_dtype(
-            ce.kv_cache_dtype if ce.kv_cache_dtype is not None
-            else env.kv_cache_dtype)
+        self.kv_cache_dtype = engine_kv_cache_dtype(ce, env.kv_cache_dtype)
         if (self.kv_cache_dtype in SCALED_KV_DTYPES
                 and not getattr(self.family, "SUPPORTS_SCALED_KV", False)):
             raise ValueError(

@@ -27,7 +27,7 @@ from __future__ import annotations
 import json
 import os
 import struct
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +50,11 @@ _ST_NAME = {np.dtype(np.bool_): "BOOL", np.dtype(np.uint8): "U8",
             np.dtype(np.float32): "F32", np.dtype(np.float64): "F64",
             np.dtype(np.int64): "I64", np.dtype(np.uint64): "U64"}
 _NP_DTYPE = {v: k for k, v in _ST_NAME.items()}
+# numpy has no bfloat16: BF16 tensors are written from and read as their
+# uint16 bits (``read_safetensors``), and come out of ``iter_safetensors``
+# as torch.bfloat16
+_NP_DTYPE["BF16"] = np.dtype(np.uint16)
+_TORCH_VIEW = {"BF16": (torch.int16, torch.bfloat16)}
 
 # torch dtype -> (logical dtype name of the manifest, stored numpy dtype)
 _STORE = {torch.bfloat16: ("bfloat16", np.uint16),
@@ -73,13 +78,19 @@ def _st_sorted(infos: Dict[str, Tuple[str, tuple]]) -> List[str]:
     return sorted(infos, key=lambda k: (-_ST_ORDER.index(infos[k][0]), k))
 
 
+def _st_name(dt) -> str:
+    return dt if isinstance(dt, str) else _ST_NAME[np.dtype(dt)]
+
+
 def write_safetensors(path: str,
                       tensors: Dict[str, Tuple[np.dtype, tuple, Callable]]
                       ) -> None:
-    """Write a safetensors file from {name: (numpy dtype, shape, fetch)}:
+    """Write a safetensors file from {name: (dtype, shape, fetch)}:
     `fetch()` returns the tensor's C-ordered numpy array when its turn
-    comes, so one tensor at a time is on the host."""
-    infos = {k: (_ST_NAME[np.dtype(dt)], tuple(int(d) for d in shape))
+    comes, so one tensor at a time is on the host. The dtype is a numpy
+    dtype or a safetensors dtype name ("BF16": fetch gives the uint16
+    bits)."""
+    infos = {k: (_st_name(dt), tuple(int(d) for d in shape))
              for k, (dt, shape, _) in tensors.items()}
     order = _st_sorted(infos)
     header, off = {}, 0
@@ -99,27 +110,52 @@ def write_safetensors(path: str,
         for k in order:
             arr = np.ascontiguousarray(tensors[k][2]())
             want = header[k]
-            if (_ST_NAME[arr.dtype] != want["dtype"]
+            if (arr.dtype != _NP_DTYPE[want["dtype"]]
                     or list(arr.shape) != want["shape"]):
                 raise ValueError(f"{k}: fetched {arr.dtype} {arr.shape}, "
                                  f"declared {want['dtype']} {want['shape']}")
             f.write(arr.tobytes())
 
 
-def read_safetensors(path: str) -> Dict[str, np.ndarray]:
-    """{name: read-only numpy array} of a safetensors file, mapped from
-    disk (nothing is read until a tensor is used)."""
+def _read_header(path: str) -> Tuple[int, Dict[str, Any]]:
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(n))
     header.pop("__metadata__", None)
+    return 8 + n, header
+
+
+def read_safetensors(path: str) -> Dict[str, np.ndarray]:
+    """{name: read-only numpy array} of a safetensors file, mapped from
+    disk (nothing is read until a tensor is used). BF16 tensors come as
+    their uint16 bits."""
+    start, header = _read_header(path)
     raw = np.memmap(path, dtype=np.uint8, mode="r")
     out = {}
     for k, info in header.items():
         b, e = info["data_offsets"]
         dt = np.dtype(_NP_DTYPE[info["dtype"]])
-        out[k] = raw[8 + n + b:8 + n + e].view(dt).reshape(info["shape"])
+        out[k] = raw[start + b:start + e].view(dt).reshape(info["shape"])
     return out
+
+
+def iter_safetensors(path: str) -> Iterator[Tuple[str, torch.Tensor]]:
+    """(name, CPU tensor) for every tensor of a safetensors file in name
+    order, each read from disk when its turn comes, in its stored dtype
+    (BF16 as torch.bfloat16, F16 as torch.float16)."""
+    start, header = _read_header(path)
+    raw = np.memmap(path, dtype=np.uint8, mode="r")
+    for k in sorted(header):
+        info = header[k]
+        b, e = info["data_offsets"]
+        arr = np.array(raw[start + b:start + e])        # one tensor's copy
+        name = info["dtype"]
+        if name in _TORCH_VIEW:
+            view, dtype = _TORCH_VIEW[name]
+            t = torch.from_numpy(arr.view(np.int16)).view(dtype)
+        else:
+            t = torch.from_numpy(arr.view(_NP_DTYPE[name]))
+        yield k, t.reshape(info["shape"])
 
 
 # -- the parameter tree --------------------------------------------------------

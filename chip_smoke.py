@@ -22,7 +22,11 @@ Phases, all of them on every run, each printing one JSON line:
    bound on a tile's real rows that the MoE layer passes (min(N * k,
    128)): its decode routings (2, 8 and 16 slots) run the small-M entry,
    its prefill routings (a skewed and a uniform 256-token chunk) the
-   Hopper body. B5 must also equal B3 bit for bit on the same rows laid out
+   Hopper body; its dense bf16 body (a bf16 Mixtral load) is timed at
+   gate/up under the skewed chunk and a decode routing, with
+   ``torch._grouped_mm`` as its yardstick, and counts its launches apart.
+   B4 is also checked at the generator's prefill buckets, Sq 1024 and
+   2048 at pos 0 of a 2048-row cache. B5 must also equal B3 bit for bit on the same rows laid out
    densely, and B6 each tile of B2 at B2's K split. B3, B4 and B5 run
    again over fp8_e5m2, int8 and int4 caches (codes and f32 scales; the
    yardstick dequantizes, then calls SDPA), timed at the main path's
@@ -86,6 +90,27 @@ Phases, all of them on every run, each printing one JSON line:
    finishes, streams repeat, mxu and i4 launch and std B1/B2 do not, peak
    memory is within 1% of the engine phase's; then once under
    ``mxuflat`` and once under ``mxu8`` (each body must launch).
+12b. hf_load: the README's Quick start entry. A Llama-2-7B float
+   checkpoint (full width, 4 layers, bf16, sharded under an index, seeded
+   weights) is written with ``write_safetensors`` and loaded with
+   ``from_pretrained(load_in_4bit=True)``, then at nf4 and bf16: load
+   time and peak device memory (at most four f32 copies of the largest
+   tensor above the final parameters), every quantized leaf with the
+   prepack undone byte-equal to the port's quantize on the CPU, and the
+   2-layer cut's logits against the CPU's as in the reference phase.
+12c. generate: the full model as a ``TpuCausalLM`` through ``generate``:
+   bs 1 greedy at prompts of 16, 100 and 1000 tokens, bs 4 seeded
+   sampling, the same with a repetition penalty through
+   ``model.generator``, and ``generate_stream``; each twice, tokens
+   repeating; B1 at M 1 and 4, B3 once a layer each decode forward, B2
+   and B4 at the 100-token bucket, B4 and the dequantize-then-matmul path
+   at the 1000-token one; the 2-layer cut's greedy stream teacher-forced
+   on the CPU (each chosen token within 5% of the logit range of the
+   CPU's best); TTFT, next-token ms, tokens/s and peak memory at bs 1.
+12d. hf_load_moe: after the Llama model is freed, a Mixtral-8x7B float
+   checkpoint (full width, 1 layer) loaded at sym_int4 and at bf16: a
+   256-token prefill and a decode step each, B6's quantized tiles and its
+   dense body launching.
 13. model_moe: the Llama model is freed, and full-width, full-depth
    Mixtral-8x7B (sym_int4 linears, random weights from seed 0) is built
    on the card.
@@ -168,6 +193,11 @@ KERNELS = {
     "ragged_expert_matmul": dict(
         source="bigdl_tpu_torch/csrc/moe_dispatch.cu",
         replaces="bigdl_tpu/ops/pallas/moe_dispatch.py:90"),
+    # B6 over a dense bf16 expert stack (a bf16 Mixtral load): its own
+    # body and launch count
+    "ragged_expert_matmul_dense": dict(
+        source="bigdl_tpu_torch/csrc/moe_dispatch.cu",
+        replaces="bigdl_tpu/ops/pallas/moe_dispatch.py:84"),
 }
 
 # the quantized-KV bodies of B3, B4 and B5: each storage kind counts its own
@@ -616,7 +646,8 @@ def _ragged_case(timer, randn, routing, rname, lname, w, iters,
     used = sorted({e_ for e_, rows in zip(te.tolist(), tr.tolist()) if rows})
     nbytes = nk * k * 2 + r.np_ * n * 2 + len(used) * nbytes_w // num_e
     b_ms, b_by = bound_ms(nbytes, 2.0 * nk * k * n)
-    rec = {"kernel": "ragged_expert_matmul",
+    rec = {"kernel": "ragged_expert_matmul" if quantized
+           else "ragged_expert_matmul_dense",
            "qtype": w.qtype if quantized else "bf16",
            "routing": rname,
            "linear": lname, "tokens": routing.shape[0], "E": num_e,
@@ -745,6 +776,11 @@ def phase_kernels(timer):
                       True))
     # Mixtral-8x7B's GQA (32 query heads on 8 kv heads) at a 256-token chunk
     cases.append(("prefill_attention", 1, 256, 32, 8, 128, 2048, [256], True))
+    # the generator's prefill: a 1024- or 2048-token bucket at position 0
+    # of a 2048-row cache (the plan spans keys past the bucket; they leave)
+    for sq in (1024, 2048):
+        cases.append(("prefill_attention", 1, sq, 32, 32, 128, 2048, [0],
+                      False))
     for hd in (64, 256):
         cases.append(("prefill_attention", 2, 128, 8, 2, hd, 384, [128],
                       False))
@@ -798,8 +834,9 @@ def phase_kernels(timer):
             emit({"phase": "kernels", **rec})
             del w
     # every ported qtype at a small, K-padded shape (a prefill routing and
-    # a decode one), and the dense bf16 body at a small shape and at
-    # Mixtral's gate/up shape, untimed
+    # a decode one) and the dense bf16 body at a small shape, untimed; the
+    # dense body timed at Mixtral's gate/up shape under the skewed prefill
+    # routing and a decode routing
     for qtype in ("sym_int4", "asym_int4", "sym_int8", "nf4", "fp4", "nf3",
                   None):
         w = (_stack_q(randn, 4, 1000, 512, qtype) if qtype else
@@ -813,10 +850,12 @@ def phase_kernels(timer):
             records.append(rec)
             emit({"phase": "kernels", **rec})
     w = randn(8, 4096, 14336, scale=0.02).to(torch.bfloat16)
-    rec = _ragged_case(timer, randn, _prefill_routing(dev), "prefill",
-                       "gate_up", w, iters=0)
-    records.append(rec)
-    emit({"phase": "kernels", **rec})
+    for rname, routing in (("prefill", _prefill_routing(dev)),
+                           ("decode", _decode_routing(gen, dev))):
+        rec = _ragged_case(timer, randn, routing, rname, "gate_up", w,
+                           iters=10)
+        records.append(rec)
+        emit({"phase": "kernels", **rec})
     del w
 
     # the quantized-KV bodies of B3, B4 and B5 (fp8_e5m2, int8, int4): timed
@@ -2058,6 +2097,477 @@ def phase_engine_moe_gather(params, cfg, max_new=32):
     return counts
 
 
+# -- the float checkpoint entry and the generator --------------------------------
+
+def _llama_hf_shapes(cfg, n_layers):
+    """(HF name, [out, in] shape or [D], init std; 0 = ones) of a llama
+    checkpoint, layer by layer, then the top-level tensors."""
+    d, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    kv = cfg.num_key_value_heads * cfg.hd
+    for i in range(n_layers):
+        p = f"model.layers.{i}."
+        yield [(p + "self_attn.q_proj.weight", (d, d), 0.02),
+               (p + "self_attn.k_proj.weight", (kv, d), 0.02),
+               (p + "self_attn.v_proj.weight", (kv, d), 0.02),
+               (p + "self_attn.o_proj.weight", (d, d), 0.02),
+               (p + "mlp.gate_proj.weight", (f, d), 0.02),
+               (p + "mlp.up_proj.weight", (f, d), 0.02),
+               (p + "mlp.down_proj.weight", (d, f), 0.02),
+               (p + "input_layernorm.weight", (d,), 0),
+               (p + "post_attention_layernorm.weight", (d,), 0)]
+    yield [("model.embed_tokens.weight", (v, d), 0.02),
+           ("model.norm.weight", (d,), 0),
+           ("lm_head.weight", (v, d), 0.02)]
+
+
+def _mixtral_hf_shapes(cfg, n_layers):
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    for i, shard in enumerate(_llama_hf_shapes(cfg, n_layers)):
+        if i == n_layers:
+            yield shard
+            continue
+        p = f"model.layers.{i}.block_sparse_moe."
+        attn = [t for t in shard if ".mlp." not in t[0]]
+        experts = [(p + f"experts.{e}.{w}.weight", shape, 0.02)
+                   for e in range(cfg.num_local_experts)
+                   for w, shape in (("w1", (f, d)), ("w3", (f, d)),
+                                    ("w2", (d, f)))]
+        yield attn + [(p + "gate.weight", (cfg.num_local_experts, d),
+                       0.02)] + experts
+
+
+def _write_hf_checkpoint(path, hf_config, shards, seed):
+    """A bf16 HF checkpoint at `path`: one safetensors file a shard (a
+    list of (name, shape, std)), a model.safetensors.index.json and the
+    config. Each tensor is drawn on the card from its own seed when the
+    writer reaches it and crosses to the host as its uint16 bits, so one
+    tensor at a time is on the host."""
+    import os
+
+    from bigdl_tpu_torch.transformers.lowbit_io import write_safetensors
+
+    os.makedirs(path, exist_ok=True)
+    gen = torch.Generator(device="cuda")
+    weight_map, total, shards = {}, 0, list(shards)
+
+    def fetch(shape, std, s):
+        def f():
+            if not std:
+                t = torch.ones(shape, dtype=torch.bfloat16, device="cuda")
+            else:
+                gen.manual_seed(s)
+                t = (torch.randn(shape, generator=gen, device="cuda")
+                     * std).to(torch.bfloat16)
+            return t.view(torch.int16).cpu().numpy().view(np.uint16)
+        return f
+
+    n = 0
+    for j, shard in enumerate(shards):
+        fname = f"model-{j + 1:05d}-of-{len(shards):05d}.safetensors"
+        tensors = {}
+        for name, shape, std in shard:
+            tensors[name] = ("BF16", shape, fetch(shape, std, seed * 10000 + n))
+            weight_map[name] = fname
+            total += 2 * int(np.prod(shape))
+            n += 1
+        write_safetensors(os.path.join(path, fname), tensors)
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_config, f)
+    return total
+
+
+def _dir_bytes(path):
+    import os
+
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def _timed_load(path, **kw):
+    """from_pretrained on the card: (model, load s, peak and final device
+    bytes above what was allocated before)."""
+    from bigdl_tpu_torch.transformers.model import AutoModelForCausalLM
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = AutoModelForCausalLM.from_pretrained(path, device="cuda", **kw)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    return (model, load_s, torch.cuda.max_memory_allocated() - base,
+            torch.cuda.memory_allocated() - base)
+
+
+def _leaf_of(params, cfg, name):
+    """The loaded QTensor of one HF linear (one layer, canonical layout)
+    and the columns its weight takes there (merged q/k/v, gate/up)."""
+    from bigdl_tpu_torch.ops.quant import from_mxu_layout
+
+    if name == "lm_head.weight":
+        return from_mxu_layout(params["lm_head"]), 0, cfg.vocab_size
+    parts = name.split(".")
+    i, proj = int(parts[2]), parts[4]
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    kv = cfg.num_key_value_heads * cfg.hd
+    layers = params["layers"]
+    where = {"q_proj": ("qkv_proj", 0, d), "k_proj": ("qkv_proj", d, d + kv),
+             "v_proj": ("qkv_proj", d + kv, d + 2 * kv),
+             "gate_proj": ("gate_up_proj", 0, f),
+             "up_proj": ("gate_up_proj", f, 2 * f),
+             "o_proj": ("o_proj", 0, d), "down_proj": ("down_proj", 0, d)}
+    key, c0, c1 = where[proj]
+    return from_mxu_layout(layers[key].index(i)), c0, c1
+
+
+def _card_bytes_equal_cpu(model, path, qtype):
+    """Every quantized leaf of a load (prepack undone) against the port's
+    quantize on the CPU of the same checkpoint tensor: (leaves checked,
+    names whose bytes differ)."""
+    from bigdl_tpu_torch.ops.quant import quantize
+    from bigdl_tpu_torch.utils.hf import iter_hf_tensors
+
+    n, bad = 0, []
+    for name, w in iter_hf_tensors(path):
+        if not name.endswith("proj.weight") and name != "lm_head.weight":
+            continue
+        want = quantize(w.to(torch.float32).t().contiguous(), qtype)
+        leaf, c0, c1 = _leaf_of(model.params, model.config, name)
+        same = (torch.equal(leaf.data[:, c0:c1].cpu(), want.data)
+                and torch.equal(leaf.scale[:, c0:c1].cpu().view(torch.int16),
+                                want.scale.view(torch.int16))
+                and (want.zero is None or torch.equal(
+                    leaf.zero[:, c0:c1].cpu().view(torch.int16),
+                    want.zero.view(torch.int16))))
+        n += 1
+        if not same:
+            bad.append(name)
+    return n, bad
+
+
+def phase_hf_load(cfg, n_layers=4):
+    """The README's Quick start entry: a Llama-2-7B float checkpoint at
+    full width and `n_layers` layers (bf16, sharded under an index, seeded
+    weights, written here with ``write_safetensors``) through
+    ``from_pretrained(load_in_4bit=True)`` on the card, then
+    ``load_in_low_bit`` nf4 and bf16. Each load: its time, its peak
+    device memory (at most four f32 copies of the largest tensor above
+    the final parameters: one tensor's quantization transients, no second
+    copy of the model), the 2-layer cut's prefill and decode logits
+    against the CPU's (``phase_reference``), and for the quantized loads
+    every leaf, prepack undone, byte-equal to the CPU's quantize of the
+    same tensor."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    hf_config = {**_hf_config(cfg, n_layers), "torch_dtype": "bfloat16",
+                 "bos_token_id": 1, "eos_token_id": 2}
+    path = tempfile.mkdtemp(prefix="bigdl_tpu_torch_hf_")
+    counts = {}
+    try:
+        t0 = time.perf_counter()
+        total = _write_hf_checkpoint(path, hf_config,
+                                     _llama_hf_shapes(cfg, n_layers), seed=5)
+        write_s = time.perf_counter() - t0
+        largest_f32 = 4 * cfg.vocab_size * cfg.hidden_size
+        for qtype in ("sym_int4", "nf4", "bf16"):
+            kw = ({"load_in_4bit": True} if qtype == "sym_int4"
+                  else {"load_in_low_bit": qtype})
+            reset_launch_counts()
+            model, load_s, peak, final = _timed_load(path, **kw)
+            rec = {"phase": f"hf_load_{qtype}", "model": "llama2-7b",
+                   "layers": n_layers, "checkpoint_bytes": total,
+                   "dir_bytes": _dir_bytes(path), "write_s": write_s,
+                   "load_s": load_s, "peak_bytes": peak,
+                   "final_param_bytes": final,
+                   "peak_over_final_bytes": peak - final,
+                   "allowed_over_final_bytes": 4 * largest_f32,
+                   "prepack_report": model.prepack_report,
+                   "load_launches": {k: v for k, v in launch_counts().items()
+                                     if v}}
+            if qtype != "bf16":
+                t0 = time.perf_counter()
+                rec["leaves_checked"], rec["leaves_differing"] = \
+                    _card_bytes_equal_cpu(model, path, qtype)
+                rec["byte_check_s"] = time.perf_counter() - t0
+            res = phase_reference(None, cfg, cut=_cut_params(model.params, 2),
+                                  extra=rec)
+            for k, v in res["card_launches"].items():
+                counts[k] = counts.get(k, 0) + v
+            require(peak - final <= 4 * largest_f32,
+                    f"hf_load {qtype}: peak {peak} exceeds the final "
+                    f"parameters {final} by more than four f32 copies of the "
+                    "largest tensor")
+            if qtype != "bf16":
+                require(rec["leaves_checked"] == 7 * n_layers + 1
+                        and not rec["leaves_differing"],
+                        f"hf_load {qtype}: leaves quantized on the card "
+                        f"differ from the CPU's: {rec['leaves_differing']}")
+            if qtype == "sym_int4":
+                card = res["card_launches"]
+                require(card.get("dequant_gemv_mxu", 0) > 0
+                        and card.get("dequant_gemm_i4", 0) > 0,
+                        f"hf_load: card launches {card}: the prepacked load "
+                        "must run mxu and i4")
+            del model
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    return counts
+
+
+def phase_hf_load_moe(cfg, n_layers=1):
+    """A Mixtral-8x7B float checkpoint at full width and `n_layers`
+    layer(s) through ``from_pretrained`` at sym_int4 and at bf16 (dense
+    expert stacks): a 256-token prefill and one decode step on each, with
+    finite logits of the expected shape; B6's quantized tiles must launch
+    at sym_int4 and its dense body at bf16."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.models import mixtral
+    from bigdl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    hf_config = {**_hf_config(cfg, n_layers),
+                 "architectures": ["MixtralForCausalLM"],
+                 "model_type": "mixtral", "torch_dtype": "bfloat16",
+                 "num_local_experts": cfg.num_local_experts,
+                 "num_experts_per_tok": cfg.num_experts_per_tok,
+                 "eos_token_id": 2}
+    path = tempfile.mkdtemp(prefix="bigdl_tpu_torch_hf_moe_")
+    counts = {}
+    prompt = torch.tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (1, 256)), device="cuda")
+    try:
+        t0 = time.perf_counter()
+        total = _write_hf_checkpoint(path, hf_config,
+                                     _mixtral_hf_shapes(cfg, n_layers),
+                                     seed=6)
+        write_s = time.perf_counter() - t0
+        for qtype, body in (("sym_int4", "ragged_expert_matmul"),
+                            ("bf16", "ragged_expert_matmul_dense")):
+            model, load_s, peak, final = _timed_load(
+                path, load_in_low_bit=qtype)
+            mcfg = model.config
+            reset_launch_counts()
+            with torch.no_grad():
+                cache = mixtral.new_cache(mcfg, 1, 2048, device="cuda")
+                lg1, cache = mixtral.forward(model.params, mcfg, prompt,
+                                             cache)
+                lg2, cache = mixtral.forward(model.params, mcfg,
+                                             prompt[:, -1:], cache)
+            torch.cuda.synchronize()
+            card = {k: v for k, v in launch_counts().items() if v}
+            for k, v in card.items():
+                counts[k] = counts.get(k, 0) + v
+            fin = bool(torch.isfinite(lg1).all() and torch.isfinite(lg2).all())
+            shapes = [list(lg1.shape), list(lg2.shape)]
+            stacks = {k: (getattr(v, "qtype", None) or str(v.dtype),
+                          list(v.data.shape if hasattr(v, "qtype")
+                               else v.shape))
+                      for k, v in model.params["layers"].items()
+                      if k.startswith("experts_")}
+            emit({"phase": f"hf_load_moe_{qtype}", "model": "mixtral-8x7b",
+                  "layers": n_layers, "checkpoint_bytes": total,
+                  "write_s": write_s, "load_s": load_s, "peak_bytes": peak,
+                  "final_param_bytes": final, "expert_stacks": stacks,
+                  "launches": card, "logits_shapes": shapes, "finite": fin})
+            require(fin and shapes == [[1, 256, cfg.vocab_size],
+                                       [1, 1, cfg.vocab_size]],
+                    f"hf_load_moe {qtype}: logits {shapes}, finite {fin}")
+            require(card.get(body, 0) > 0,
+                    f"hf_load_moe {qtype}: {body} never launched: {card}")
+            del model, cache
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    return counts
+
+
+def _gen_run(fn, name):
+    """fn() twice from launch counts of 0: (first output, counts of the
+    first run, seconds of each run); the two outputs must be equal."""
+    from bigdl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    a = fn()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    counts = launch_counts()
+    b = fn()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    same = np.array_equal(a, b)
+    require(same, f"generate {name}: the second run's tokens differ")
+    return a, counts, (t1 - t0, t2 - t1)
+
+
+def _decode_forwards(n_new, prompt_len):
+    """Decode forwards of a generate: one a token after the first, plus
+    the pad repair when the prompt does not fill its bucket."""
+    bucket = 16
+    while bucket < prompt_len:
+        bucket *= 2
+    return n_new - 1 + (bucket != prompt_len)
+
+
+def phase_generate(params, cfg, card, max_new=64):
+    """The README's ``generate`` on the full-depth Llama-2-7B of the
+    engine phase (prepacked), as a ``TpuCausalLM``: bs 1 greedy at
+    prompts of 16, 100 and 1000 tokens, bs 4 seeded sampling
+    (temperature 0.8, top-k 40, top-p 0.95), the same through
+    ``model.generator.generate`` with repetition_penalty 1.1, and
+    ``generate_stream`` at bs 1; each twice, the tokens repeating. B1 (mxu)
+    launches at M 1 and 4 and B3 once a layer each decode forward; B2 (i4)
+    and B4 take the 100-token prompt (bucket 128), B4 and the
+    dequantize-then-matmul path the 1000-token one (bucket 1024), the plain
+    attention the 16-token one. Then the 2-layer cut's greedy stream is
+    held teacher-forced against the CPU, and bs 1 TTFT, next-token ms and
+    peak memory are reported."""
+    import dataclasses
+
+    from bigdl_tpu_torch.generation import GenerationConfig, GenerationStats
+    from bigdl_tpu_torch.models import llama
+    from bigdl_tpu_torch.ops.matmul import DEQUANT_THEN_MATMUL
+    from bigdl_tpu_torch.transformers.model import TpuCausalLM
+
+    model = TpuCausalLM(params, cfg, llama, _hf_config(cfg), "sym_int4",
+                        max_seq=2048)
+    rng = np.random.default_rng(9)
+    L = cfg.num_hidden_layers
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    runs = {}
+    torch.cuda.reset_peak_memory_stats()
+    for n in (16, 100, 1000):
+        ids = rng.integers(3, cfg.vocab_size, (1, n))
+        stats = GenerationStats()
+
+        def go(ids=ids, stats=stats):
+            stats.rest_token_s.clear()
+            return model.generate(ids, max_new_tokens=max_new, stats=stats)
+
+        out, c, secs = _gen_run(go, f"bs1-{n}")
+        add(c)
+        new = out.shape[1] - n
+        fwd = _decode_forwards(new, n)
+        runs[f"bs1_{n}"] = {
+            "new_tokens": new, "wall_s": secs, "ttft_s": stats.first_token_s,
+            "next_token_ms": 1e3 * stats.rest_cost_mean,
+            "tokens_per_s": (1.0 / stats.rest_cost_mean
+                             if stats.rest_cost_mean else None),
+            "launches": {k: v for k, v in c.items() if v},
+            "decode_forwards": fwd, "tokens": out[0, n:n + 8].tolist(),
+            "attention_route": ("B4" if c["prefill_attention"] else "plain")}
+        require(c["decode_attention"] == L * fwd,
+                f"generate bs1-{n}: B3 launched {c['decode_attention']} "
+                f"times for {fwd} decode forwards of {L} layers")
+        require(c["dequant_gemv_mxu"] > 0, f"generate bs1-{n}: no B1 (mxu)")
+        require(not c["dequant_gemv"] and not c["dequant_gemm"],
+                f"generate bs1-{n}: a std B1/B2 body ran on the prepacked "
+                "model")
+        if n == 16:
+            require(c["prefill_attention"] == 0,
+                    "generate bs1-16: a 16-token bucket went to B4")
+        else:
+            require(c["prefill_attention"] == L,
+                    f"generate bs1-{n}: B4 launched "
+                    f"{c['prefill_attention']} times, not once a layer")
+        if n == 100:
+            require(c["dequant_gemm_i4"] > 0,
+                    "generate bs1-100: B2 (i4) did not take the prefill")
+        runs[f"bs1_{n}"]["ids"] = out
+    # the 1000-token prompt's prefill: linears past 128 rows dequantize
+    # and multiply (read from the path's profiler range)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        model.generate(runs["bs1_1000"]["ids"][:, :1000], max_new_tokens=1)
+    dtm = sum(1 for e in prof.events() if e.name == DEQUANT_THEN_MATMUL)
+    runs["bs1_1000"]["dequant_then_matmul_calls"] = dtm
+    require(dtm > 0, "generate bs1-1000: no linear took the "
+            "dequantize-then-matmul path")
+    for r in runs.values():
+        r.pop("ids")
+    peak_bs1 = torch.cuda.max_memory_allocated()
+
+    ids4 = rng.integers(3, cfg.vocab_size, (4, 100))
+    samp = dict(do_sample=True, temperature=0.8, top_k=40, top_p=0.95,
+                seed=11)
+    out4, c, secs = _gen_run(lambda: model.generate(
+        ids4, max_new_tokens=max_new, **samp), "bs4-sampled")
+    add(c)
+    require(c["dequant_gemv_mxu"] > 0, "generate bs4: no B1 (mxu) at M 4")
+    runs["bs4_sampled"] = {"wall_s": secs, "tokens": out4[:, 100:108]
+                           .tolist(), "launches": {k: v for k, v in
+                                                   c.items() if v}}
+    gen = GenerationConfig(max_new_tokens=max_new, repetition_penalty=1.1,
+                           **samp)
+    outp, c, secs = _gen_run(lambda: model.generator.generate(ids4, gen),
+                             "bs4-penalized")
+    add(c)
+    runs["bs4_penalized"] = {
+        "wall_s": secs, "tokens": outp[:, :8].tolist(),
+        "differs_from_unpenalized": not np.array_equal(outp,
+                                                       out4[:, 100:])}
+    ids1 = rng.integers(3, cfg.vocab_size, (1, 100))
+    stream, c, secs = _gen_run(lambda: list(model.generate_stream(
+        ids1, max_new_tokens=max_new)), "stream")
+    add(c)
+    full = model.generate(ids1, max_new_tokens=max_new)[0, 100:]
+    same = stream == full[:len(stream)].tolist()
+    runs["stream_bs1"] = {"wall_s": secs, "tokens": len(stream),
+                          "equals_generate": same}
+    require(same, "generate_stream tokens differ from generate's")
+    in_vocab = all(0 <= t < cfg.vocab_size for t in stream)
+    require(in_vocab, "generate: token outside the vocabulary")
+
+    # teacher-forced: the 2-layer cut's greedy stream on the card, each
+    # chosen token's logit on the CPU within 5% of the row's range of the
+    # CPU's best
+    cut_cfg = dataclasses.replace(cfg, num_hidden_layers=2)
+    cut = _cut_params(params, 2)
+    small = TpuCausalLM(cut, cut_cfg, llama, _hf_config(cfg, 2), "sym_int4",
+                        max_seq=2048)
+    ids_t = rng.integers(3, cfg.vocab_size, (1, 100))
+    seq = small.generate(ids_t, max_new_tokens=max_new)
+    with torch.no_grad():
+        cpu_lg, _ = llama.forward(
+            _to_device(cut, "cpu"), cut_cfg,
+            torch.from_numpy(seq[:, :-1]).long(),
+            llama.new_cache(cut_cfg, 1, 2048, device="cpu"))
+    rows = cpu_lg[0, 99:].float()
+    chosen = rows[torch.arange(rows.shape[0]),
+                  torch.from_numpy(seq[0, 100:]).long()]
+    gap = rows.max(-1).values - chosen
+    rng_ = rows.max(-1).values - rows.min(-1).values
+    worst = float((gap / rng_).max())
+    top1 = float((gap == 0).float().mean())
+    runs["teacher_forced_cut"] = {"layers": 2, "steps": int(rows.shape[0]),
+                                  "worst_gap_of_range": worst,
+                                  "cpu_top1_agree": top1, "tol": 0.05}
+    require(worst <= 0.05, f"generate: a card token's CPU logit lies "
+            f"{worst:.3f} of the range below the CPU's best (tol 0.05)")
+    b1 = runs["bs1_100"]
+    emit({"phase": "generate", "model": "llama2-7b", "qtype": "sym_int4",
+          "layout": "int4", "layers": L, "max_new_tokens": max_new,
+          "kv": model.kv_cache_dtype, "runs": runs,
+          "bs1_ttft_s": b1["ttft_s"], "bs1_next_token_ms":
+          b1["next_token_ms"], "bs1_tokens_per_s": b1["tokens_per_s"],
+          "peak_memory_bs1": peak_bs1,
+          "peak_memory": torch.cuda.max_memory_allocated(),
+          "card": card})
+    return counts
+
+
 def summary(records, counts):
     """One entry per kernel: its launches on the engine run and the
     numbers of its representative main-path case."""
@@ -2075,6 +2585,8 @@ def summary(records, counts):
         "prefill_attention": dict(Sq=256, S=2048, Hkv=32),
         "paged_decode_attention": dict(B=8, Hkv=32, hd=128),
         "ragged_expert_matmul": dict(routing="prefill", linear="gate_up"),
+        "ragged_expert_matmul_dense": dict(routing="prefill",
+                                           linear="gate_up"),
     }
     for base in _KV_BODIES:
         for kind in QUANT_KV_KINDS:
@@ -2085,10 +2597,13 @@ def summary(records, counts):
         main = next(r for r in mine if "ms" in r and all(
             r.get(k) == v for k, v in rep[name].items()))
         extra = {}
-        if name == "ragged_expert_matmul":
+        if name.startswith("ragged_expert_matmul"):
             for routing in ("decode", "prefill_uniform"):
-                other = next(r for r in mine if "ms" in r and r.get(
-                    "linear") == "gate_up" and r.get("routing") == routing)
+                other = next((r for r in mine if "ms" in r and r.get(
+                    "linear") == "gate_up" and r.get("routing") == routing),
+                    None)
+                if other is None:
+                    continue
                 extra[routing] = {k: other[k] for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "entry", "max_abs_err", "ps_per_weight")}
@@ -2152,10 +2667,16 @@ def main() -> int:
         # full model prepacked in place (params hold the int4 layout after)
         phase_reference_prepack(params, cfg)
         more.append(phase_engine_prepack(params, cfg, slab_toks, slab_peak))
+        # the Quick start: a float checkpoint through from_pretrained, then
+        # generate on the full (prepacked) model
+        more.append(phase_hf_load(cfg))
+        more.append(phase_generate(params, cfg, card))
         del params
         gc.collect()
         torch.cuda.empty_cache()
 
+        from bigdl_tpu_torch.utils.testing import MIXTRAL_8X7B
+        more.append(phase_hf_load_moe(MIXTRAL_8X7B))
         moe_params, moe_cfg = phase_model_moe()
         phase_reference_moe(moe_params, moe_cfg)
         from bigdl_tpu_torch.models import mixtral

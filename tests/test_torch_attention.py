@@ -28,6 +28,7 @@ from bigdl_tpu_torch.ops.cuda import decode_attention as tdec
 from bigdl_tpu_torch.ops.cuda import prefill_attention as tpre
 from bigdl_tpu_torch.ops.norms import rms_norm
 from bigdl_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rope_freqs
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _bf16(rng, *shape):

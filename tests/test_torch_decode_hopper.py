@@ -41,6 +41,7 @@ from bigdl_tpu_torch.ops.cuda import dequant_matmul as dm
 from bigdl_tpu_torch.ops.cuda import paged_decode_attention as pda
 from bigdl_tpu_torch.ops.kvcache import unpack_int4
 from bigdl_tpu_torch.ops.paged import _gather_dense
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SMS = 132
 KINDS = ("bf16", "fp8_e5m2", "int8", "int4")

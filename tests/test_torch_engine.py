@@ -28,11 +28,13 @@ from bigdl_tpu.utils.testing import random_llama_params as jax_random_params
 from bigdl_tpu_torch import bridge
 from bigdl_tpu_torch.models import llama as tllama
 from bigdl_tpu_torch.models.llama import LlamaConfig
+from bigdl_tpu_torch.ops.kvcache import kv_dtype_name
 from bigdl_tpu_torch.serving.engine import (EngineConfig, LLMEngine,
                                             SamplingParams, sample_rows)
 from bigdl_tpu_torch.utils.testing import (LLAMA2_7B, TINY_LLAMA,
                                            SyntheticCausalLM,
                                            random_llama_params)
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 GEOM = dict(vocab_size=256, hidden_size=128, intermediate_size=256,
             num_hidden_layers=2, num_attention_heads=2,
@@ -226,3 +228,25 @@ def test_unported_config_features_raise(models, field, value):
     with pytest.raises(NotImplementedError, match=field):
         tllama.forward(tp, cfg, torch.zeros(1, 2, dtype=torch.int64),
                        tllama.new_cache(tcfg, 1, 8, device="cpu"))
+
+
+@pytest.mark.parametrize("kv_quantized", [False, True])
+@pytest.mark.parametrize("kv_cache_dtype", [None, "int8"])
+def test_engine_config_kv_quantized_stores_the_jax_kind(models,
+                                                        kv_cache_dtype,
+                                                        kv_quantized):
+    """EngineConfig.kv_quantized with the JAX engine's precedence: an
+    explicit kv_cache_dtype other than bf16 wins, else kv_quantized=True
+    stores fp8_e5m2, else the default. Both engines store the same kind
+    (None is the JAX config's default, "bf16")."""
+    jcfg, jp, tcfg, tp = models
+    jkw = {} if kv_cache_dtype is None else {"kv_cache_dtype":
+                                             kv_cache_dtype}
+    jeng = JaxLLMEngine(JaxSyntheticLM(jp, jcfg), JaxEngineConfig(
+        max_batch=2, max_seq=64, kv_quantized=kv_quantized, **jkw))
+    teng = LLMEngine(SyntheticCausalLM(tp, tcfg), EngineConfig(
+        max_batch=2, max_seq=64, kv_cache_dtype=kv_cache_dtype,
+        kv_quantized=kv_quantized), device="cpu")
+    want = kv_cache_dtype or ("fp8_e5m2" if kv_quantized else "bf16")
+    assert teng.kv_cache_dtype == jeng.kv_cache_dtype == want
+    assert kv_dtype_name(teng.cache.k.dtype) == want

@@ -21,6 +21,7 @@ from bigdl_tpu.transformers.model import \
 from bigdl_tpu.transformers.model import TpuCausalLM as JaxTpuCausalLM
 from bigdl_tpu.utils.testing import random_llama_params as jax_random_params
 from bigdl_tpu_torch.transformers.model import AutoModelForCausalLM
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 HF_TINY = {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
            "vocab_size": 256, "hidden_size": 64, "intermediate_size": 128,

@@ -37,6 +37,7 @@ from bigdl_tpu_torch.ops.cuda import moe_dispatch as cmoe
 from bigdl_tpu_torch.ops.moe_dispatch import ragged_routing
 from bigdl_tpu_torch.ops.quant import (QTensor, get_qtype, quantize,
                                        to_mxu_layout)
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 QTYPES = ["sym_int4", "asym_int4", "sym_int8", "nf4", "fp4", "nf3"]
 SMS = 132

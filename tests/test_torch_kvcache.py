@@ -61,6 +61,7 @@ from bigdl_tpu_torch.ops.cuda import prefill_attention as tpre
 from bigdl_tpu_torch.serving.engine import (EngineConfig, LLMEngine,
                                             SamplingParams)
 from bigdl_tpu_torch.utils.testing import TINY_LLAMA, SyntheticCausalLM
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 KINDS = ("fp8_e5m2", "int8", "int4")
 SCALED = ("int8", "int4")

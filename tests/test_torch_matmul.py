@@ -22,6 +22,7 @@ from bigdl_tpu_torch import bridge
 from bigdl_tpu_torch.ops import matmul as tmatmul
 from bigdl_tpu_torch.ops.cuda import dequant_matmul as dm
 from bigdl_tpu_torch.ops.quant import QTensor
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 QTYPES = ["sym_int4", "asym_int4", "sym_int8", "nf4", "fp4", "nf3"]
 

@@ -49,6 +49,7 @@ from bigdl_tpu_torch.serving.engine import (EngineConfig, LLMEngine,
                                             SamplingParams)
 from bigdl_tpu_torch.utils.testing import (MIXTRAL_8X7B, SyntheticCausalLM,
                                            random_mixtral_params)
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 D, F = 128, 256
 GEOM = dict(vocab_size=256, hidden_size=D, intermediate_size=F,

@@ -44,6 +44,7 @@ from bigdl_tpu_torch.serving import pagepool as tpool
 from bigdl_tpu_torch.serving.engine import (EngineConfig, LLMEngine,
                                             SamplingParams)
 from bigdl_tpu_torch.utils.testing import TINY_LLAMA, SyntheticCausalLM
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _bits(t: torch.Tensor) -> np.ndarray:

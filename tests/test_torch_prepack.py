@@ -63,6 +63,7 @@ from bigdl_tpu_torch.transformers import lowbit_io
 from bigdl_tpu_torch.transformers.model import (AutoModelForCausalLM,
                                                 TpuCausalLM)
 from bigdl_tpu_torch.utils.testing import TINY_LLAMA
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 HF_TINY = {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
            "vocab_size": 256, "hidden_size": 64, "intermediate_size": 128,
@@ -392,12 +393,23 @@ def test_registry_families():
 
 
 def test_load_entry_refusals(tmp_path):
-    with pytest.raises(NotImplementedError, match="A6"):
+    # a directory with neither a low-bit manifest nor an HF checkpoint
+    # raises as the JAX facade does (no config.json)
+    with pytest.raises(FileNotFoundError):
         AutoModelForCausalLM.from_pretrained(str(tmp_path), device="cpu")
     _jax_tiny_model("off").save_low_bit(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="unmerge"):
-        AutoModelForCausalLM.load_low_bit(str(tmp_path), device="cpu",
-                                          merge_projections=False)
+    # merge_projections=False undoes the merged directory's merge, as the
+    # JAX facade's unmerge_projections does
+    split = AutoModelForCausalLM.load_low_bit(str(tmp_path), device="cpu",
+                                              merge_projections=False)
+    jsplit = JaxAutoModel.load_low_bit(str(tmp_path),
+                                       merge_projections=False)
+    layers = split.params["layers"]
+    assert "qkv_proj" not in layers and "gate_up_proj" not in layers
+    for name, jw in jsplit.params["layers"].items():
+        if hasattr(jw, "qtype"):
+            assert np.array_equal(layers[name].data.numpy(),
+                                  np.asarray(jw.data)), name
     tm = AutoModelForCausalLM.from_pretrained(str(tmp_path), device="cpu")
     assert "qkv_proj" in tm.params["layers"]
 

@@ -18,6 +18,7 @@ import torch
 from bigdl_tpu.ops import quant as jq
 from bigdl_tpu_torch import bridge
 from bigdl_tpu_torch.ops import quant as tq
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 QTYPES = ["sym_int4", "asym_int4", "sym_int8", "nf4", "fp4", "nf3"]
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

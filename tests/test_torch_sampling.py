@@ -26,6 +26,7 @@ from bigdl_tpu_torch.ops import random as rnd
 from bigdl_tpu_torch.serving.engine import (EngineConfig, LLMEngine,
                                             SamplingParams, sample_rows)
 from bigdl_tpu_torch.utils.testing import TINY_LLAMA, SyntheticCausalLM
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SEED_POS = [(0, 0), (1234, 7), (99, 12345), (2 ** 31 - 1, 2 ** 31 - 1),
             (7, 2 ** 31 - 1), (2 ** 31 - 1, 0)]

@@ -24,6 +24,7 @@ from bigdl_tpu_torch.ops.cuda import LAUNCHES
 from bigdl_tpu_torch.ops.cuda import dequant_matmul as dm
 from bigdl_tpu_torch.ops.cuda import moe_dispatch as cmoe
 from bigdl_tpu_torch.ops.quant import QTensor, quantize, to_mxu_layout
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SMS = 132
 OCC = 2
