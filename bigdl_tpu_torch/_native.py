@@ -23,8 +23,8 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 SOURCES = ("dequant_gemv", "dequant_gemm", "dequant_variants",
-           "dequant_mxu8", "decode_attention", "prefill_attention",
-           "paged_decode_attention", "moe_dispatch")
+           "decode_attention", "prefill_attention", "paged_decode_attention",
+           "moe_dispatch")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-lineinfo", "-shared",
                            "-Xcompiler", "-fPIC"]
@@ -49,9 +49,6 @@ SIGNATURES = {
         "bigdl_dequant_variant": [_c_int] + [_c_void_p] * 7 + [_c_int] * 8
         + [_c_void_p],
         "bigdl_dequant_variant_blocks_per_sm": [_c_int] * 4},
-    "dequant_mxu8": {
-        "bigdl_dequant_mxu8": [_c_void_p] * 6 + [_c_int] * 7 + [_c_void_p],
-        "bigdl_dequant_mxu8_blocks_per_sm": [_c_int] * 3},
     "decode_attention": {
         "bigdl_decode_attention": [_c_void_p] * 9 + [_c_int] * 7
         + [_c_float, _c_void_p],

@@ -1,12 +1,11 @@
-// Tensor-core dequant matmul shared by B1's fold, mxuflat and mxu8 bodies
-// (dequant_variants.cu, dequant_mxu8.cu, M <= 32) and B6's dense bf16
-// stack (moe_dispatch.cu, 128-row token tiles): y[M, N] = x[M, Kp] .
-// W[Kp, N] over block-quantized W, with mma.sync m16n8k16 (bf16 in, f32
-// accumulate). Its word loads and dequantization (Words, load_chunk,
-// dequant_col) also feed the small-M body of B1's std and mxu bodies and
-// B6's decode tiles (dequant_smallm.cuh), which makes the weights the A
-// operand instead, and dequant_col the Hopper body of B2 and B6's
-// quantized prefill tiles (dequant_wgmma.cuh).
+// Tensor-core dequant matmul of B1's fold and mxuflat bodies
+// (dequant_variants.cu, M <= 32): y[M, N] = x[M, Kp] . W[Kp, N] over
+// block-quantized W, with mma.sync m16n8k16 (bf16 in, f32 accumulate). Its
+// word loads and dequantization (Words, load_chunk, dequant_col) also feed
+// the small-M body of B1's std, mxu and mxu8 bodies and B6's decode tiles
+// (dequant_smallm.cuh), which makes the weights the A operand instead, and
+// dequant_col the Hopper body of B2 and B6's quantized prefill tiles
+// (dequant_wgmma.cuh).
 //
 // The weights are never staged in shared memory. Each thread loads packed
 // 32-bit words straight from device memory (4 adjacent columns of one
@@ -41,23 +40,14 @@
 // sign-extends each byte's nibbles into a bf16 pair.
 //
 // Two scale policies share it too. STD multiplies every weight by its
-// block scale and rounds it to bf16 before the product (the `_gemv_kernel`
-// / `_kernel_4bit` / `_kernel_i4` / `_gemv_kernel_mxuflat` numerics). FOLD
-// feeds the tensor cores the raw codes (exact in bf16; a codebook value
-// rounded to bf16) and sums each 32- or 64-K quant block into a separate
-// f32 C fragment, which then FMAs into the running sum with its column's
-// f32 scale (`_gemv_kernel_fold`): one scale a block and C column, no
-// per-weight multiply. A C fragment's columns are not the
-// ones whose codes the lane loads, so FOLD loads the scales of its 8 * CW
-// C columns instead.
-//
-// B6's dense stack runs the same body with a ragged weight address
-// (`RAGGED`): block z takes 128-row tile z of x, whose weight is expert
-// tile_expert[z] of an [E, ...] stack, and whose real rows are a prefix of
-// tile_rows[z] rows
-// (the rest are zeros): m-tiles past them are neither staged nor
-// multiplied, a tile with no real row loads no weight, and both write
-// zeros, which is what the product of zero rows is.
+// block scale and rounds it to bf16 before the product (the
+// `_gemv_kernel_mxuflat` numerics). FOLD feeds the tensor cores the raw
+// codes (exact in bf16; a codebook value rounded to bf16) and sums each
+// 32- or 64-K quant block into a separate f32 C fragment, which then FMAs
+// into the running sum with its column's f32 scale (`_gemv_kernel_fold`):
+// one scale a block and C column, no per-weight multiply. A C fragment's
+// columns are not the ones whose codes the lane loads, so FOLD loads the
+// scales of its 8 * CW C columns instead.
 #pragma once
 
 #include "common.cuh"
@@ -68,7 +58,7 @@ enum WeightKind : int {
     KIND_ASYM4 = 1,      // c * s + z
     KIND_CODEBOOK4 = 2,  // lut[c] * s
     KIND_SYM8 = 3,       // c * s, int8 codes
-    KIND_BF16 = 4,       // dense bf16 weights (B6's dense body only)
+    KIND_BF16 = 4,       // dense bf16 weights (B6 over a dense stack)
     KIND_I4 = 5,         // s * c, signed int4 codes in K-row pairs
 };
 
@@ -138,18 +128,18 @@ __device__ __forceinline__ void ldg_words(const void* p, uint32_t* out) {
 // (low, then high nibbles), one for int8 and bf16. A bf16 row of 4 * CW
 // columns is 2 * CW words.
 //
-// Q8 is the mxu8 body's m16n8k32 fragment: 32 K a unit (one quant
-// block), lane t's k slots 4t..4t+3 and 16+4t..16+4t+3. int4-layout
-// rows are then 2t, 2t+1, 2t+8, 2t+9 of the unit, as for the split-block
-// nibbles; int8 rows 4t..4t+3 of a 16-row half unit.
+// Q8 is the mxu8 body's m16n8k32 fragment (dequant_smallm.cuh): 32 K a
+// unit (one quant block), lane t's k slots 4t..4t+3 and 16+4t..16+4t+3.
+// int4-layout rows are then 2t, 2t+1, 2t+8, 2t+9 of the unit, as for the
+// split-block nibbles; int8 rows 4t..4t+3 of a 16-row half unit.
 //
-// FOLD and Q8 keep the scales of the thread's 8 * CW C columns for each
-// of the chunk's (at most two) quant blocks instead of its own columns'.
+// FOLD keeps the scales of the thread's 8 * CW C columns for each of the
+// chunk's (at most two) quant blocks instead of its own columns'.
 template <int KIND, int CW, bool FOLD = false, bool Q8 = false>
 struct Words {
     static constexpr int kUnits = row_units(KIND) ? 4 : 2;
     static constexpr int kRowWords = KIND == KIND_BF16 ? 2 * CW : CW;
-    static constexpr bool kCScales = FOLD || Q8;
+    static constexpr bool kCScales = FOLD;
     uint32_t w[kUnits][4][kRowWords];       // (see unit_row)
     // bf16 scales, 2 columns a word: per unit (own columns) or per block
     // (C columns)
@@ -179,8 +169,7 @@ __host__ __device__ constexpr int unit_k() {
 }
 
 // Load this thread's packed words and scales for the chunk at K offset k0
-// (klen valid K rows). ccol is the first of the thread's C columns (FOLD,
-// Q8).
+// (klen valid K rows). ccol is the first of the thread's C columns (FOLD).
 template <int KIND, int CW, bool FOLD = false, bool Q8 = false>
 __device__ __forceinline__ void load_chunk(
     Words<KIND, CW, FOLD, Q8>& f, const uint8_t* __restrict__ data,
@@ -298,15 +287,6 @@ __device__ __forceinline__ void dequant_col(const WT& f, int u, bool hi,
             const uint32_t d = fma_bf16x2(v, 0x3F803F80u, 0xC308C308u);
             b[r] = FOLD ? d : fma_bf16x2(d, s2, 0x80008000u);
         }
-    } else if (KIND == KIND_BF16) {
-        // column 4c + j is half (j & 1) of word 2c + (j >> 1) of a
-        // row: pair rows 2t and 2t+1 (and 2t+8, 2t+9) as they are
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            b[r] = __byte_perm(f.w[u][2 * r][2 * c + (j >> 1)],
-                               f.w[u][2 * r + 1][2 * c + (j >> 1)],
-                               (j & 1) ? 0x7632 : 0x5410);
-        }
     } else if (KIND == KIND_SYM4) {
         // (0x4300 | q) is the bf16 value 128 + q; fma(v, 1, -136)
         // is q - 8 exactly, fma(q - 8, s, -0) rounds the exact
@@ -358,16 +338,13 @@ __device__ __forceinline__ void dequant_step(const Words<KIND, CW, FOLD>& f,
 }
 
 // One k step: the NT n-tiles' B fragments against the MT m-tiles of the
-// 16-wide x slice starting at column kc of xs (with RAGGED, only the first
-// mt_live m-tiles: the others hold zero rows).
-template <int MT, int NT, bool RAGGED>
+// 16-wide x slice starting at column kc of xs.
+template <int MT, int NT>
 __device__ __forceinline__ void mma_step(float (*acc)[NT][4],
                                          const uint16_t (*xs)[kLd], int kc,
-                                         uint32_t (*bf)[2], int lane,
-                                         int mt_live) {
+                                         uint32_t (*bf)[2], int lane) {
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
-        if (RAGGED && mt >= mt_live) continue;
         uint32_t a[4];
         ldmatrix_x4(a, &xs[mt * 16 + (lane & 15)][kc + (lane >> 4) * 8]);
 #pragma unroll
@@ -385,14 +362,13 @@ template <int MT, int CW>
 __device__ __forceinline__ void store_tile(float (*acc)[4 * CW][4],
                                            float* __restrict__ ws,
                                            uint16_t* __restrict__ y, int M,
-                                           int N, int row0, int m_out,
-                                           int wcol, int g, int t) {
+                                           int N, int wcol, int g, int t) {
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
         for (int hrow = 0; hrow < 2; ++hrow) {
             const int row = mt * 16 + g + 8 * hrow;
-            if (row >= m_out) continue;
+            if (row >= M) continue;
 #pragma unroll
             for (int q = 0; q < 2; ++q) {
                 const int n = wcol + (2 * t + q) * 4 * CW;
@@ -407,11 +383,11 @@ __device__ __forceinline__ void store_tile(float (*acc)[4 * CW][4],
                         o.y = pack_bf16x2(acc[mt][4 * c + 2][e],
                                           acc[mt][4 * c + 3][e]);
                         *reinterpret_cast<uint2*>(
-                            y + ((size_t)row0 + row) * N + n + 4 * c) = o;
+                            y + (size_t)row * N + n + 4 * c) = o;
                     } else {
                         *reinterpret_cast<float4*>(
-                            ws + ((size_t)blockIdx.y * M + row0 + row) * N +
-                            n + 4 * c) =
+                            ws + ((size_t)blockIdx.y * M + row) * N + n +
+                            4 * c) =
                             make_float4(acc[mt][4 * c][e],
                                         acc[mt][4 * c + 1][e],
                                         acc[mt][4 * c + 2][e],
@@ -424,12 +400,9 @@ __device__ __forceinline__ void store_tile(float (*acc)[4 * CW][4],
 }
 
 // The kernel body. MT m-tiles of 16 rows; CW words (4 * CW columns) per
-// thread per packed row; STAGES chunks of 64 K in the pipeline. With
-// RAGGED, M is the height of the whole row buffer and block z computes its
-// tile z (rows [128 z, 128 z + 128), MT == 8) against its expert. FOLD
-// is the scale-folded policy (not with RAGGED).
-template <int MT, int CW, int STAGES, int KIND, bool RAGGED,
-          bool FOLD = false>
+// thread per packed row; STAGES chunks of 64 K in the pipeline. FOLD is
+// the scale-folded policy.
+template <int MT, int CW, int STAGES, int KIND, bool FOLD>
 __device__ __forceinline__ void
 dequant_mma_body(const uint16_t* __restrict__ x,       // [M, Kp] bf16
                  const uint8_t* __restrict__ data,     // [Kp/2, N] | [Kp, N]
@@ -438,29 +411,11 @@ dequant_mma_body(const uint16_t* __restrict__ x,       // [M, Kp] bf16
                  const float* __restrict__ lut_g,      // [16] (codebook)
                  float* __restrict__ ws,               // [split, M, N] f32
                  uint16_t* __restrict__ y,             // [M, N] bf16
-                 int M, int Kp, int N, int block, int chunks_per_split,
-                 const RaggedArgs& ra) {
+                 int M, int Kp, int N, int block, int chunks_per_split) {
     constexpr int NT = 4 * CW;             // 8-column mma tiles per warp
     constexpr int kWarpCols = 8 * NT;
     __shared__ __align__(16) uint16_t xs[STAGES][MT * 16][kLd];
     __shared__ float lut[16];
-
-    // rows staged and multiplied (m_live) and written (m_out), from row0
-    int m_live = M, m_out = M, row0 = 0;
-    if (RAGGED) {
-        const int tile = blockIdx.z;
-        // an id outside [0, E) breaks the caller's contract; clamp it so no
-        // read leaves the stack
-        const int e = min(max(ra.tile_expert[tile], 0), ra.num_experts - 1);
-        data += (size_t)e * ra.data_es;
-        scale += (size_t)e * ra.scale_es;
-        if (KIND == KIND_ASYM4) zero += (size_t)e * ra.scale_es;
-        row0 = tile * MT * 16;
-        m_out = MT * 16;
-        m_live = min(max(ra.tile_rows[tile], 0), m_out);
-        x += (size_t)row0 * Kp;
-    }
-    const int mt_live = (m_live + 15) / 16;
 
     const int tid = threadIdx.x;
     const int warp = tid >> 5;
@@ -473,8 +428,8 @@ dequant_mma_body(const uint16_t* __restrict__ x,       // [M, Kp] bf16
     const int half = block >> 1;
     if (KIND == KIND_CODEBOOK4 && tid < 16) lut[tid] = lut_g[tid];
 
-    static_assert(!(FOLD && (RAGGED || KIND == KIND_ASYM4 ||
-                             KIND == KIND_BF16)),
+    static_assert(KIND != KIND_BF16, "B6's dense stack is not on this body");
+    static_assert(!(FOLD && KIND == KIND_ASYM4),
                   "FOLD takes sym, codebook and int4-layout weights");
     // FOLD: the first of this thread's 8 * CW C columns
     const int ccol = wcol + 8 * CW * t;
@@ -495,10 +450,7 @@ dequant_mma_body(const uint16_t* __restrict__ x,       // [M, Kp] bf16
 
     const int nchunks = (Kp + kChunk - 1) / kChunk;
     const int c_begin = blockIdx.y * chunks_per_split;
-    // a ragged tile with no real row skips the K loop and writes zeros
-    const int c_end = (RAGGED && m_live == 0)
-                          ? c_begin
-                          : min(nchunks, c_begin + chunks_per_split);
+    const int c_end = min(nchunks, c_begin + chunks_per_split);
 
     // Chunk c's words sit in ring[(c - c_begin) % STAGES] and its x in
     // xs[(c - c_begin) % STAGES]. The loop is unrolled by STAGES so every
@@ -509,7 +461,7 @@ dequant_mma_body(const uint16_t* __restrict__ x,       // [M, Kp] bf16
     for (int i = 0; i < STAGES - 1; ++i) {
         const int c = c_begin + i;
         if (c < c_end) {
-            stage_x<MT>(xs[i], x, m_live, Kp, c * kChunk, tid);
+            stage_x<MT>(xs[i], x, M, Kp, c * kChunk, tid);
             load_chunk<KIND, CW, FOLD>(ring[i], data, scale, zero,
                                        c * kChunk,
                                        min(kChunk, Kp - c * kChunk), N, ncol,
@@ -527,7 +479,7 @@ dequant_mma_body(const uint16_t* __restrict__ x,       // [M, Kp] bf16
             const int cn = c + STAGES - 1;
             const int sn = (i + STAGES - 1) % STAGES;
             if (cn < c_end) {
-                stage_x<MT>(xs[sn], x, m_live, Kp, cn * kChunk, tid);
+                stage_x<MT>(xs[sn], x, M, Kp, cn * kChunk, tid);
                 load_chunk<KIND, CW, FOLD>(ring[sn], data, scale, zero,
                                            cn * kChunk,
                                            min(kChunk, Kp - cn * kChunk), N,
@@ -541,11 +493,9 @@ dequant_mma_body(const uint16_t* __restrict__ x,       // [M, Kp] bf16
             // STD sums into acc, FOLD into the block's part
             auto step = [&](int kc, uint32_t (*bf)[2]) {
                 if constexpr (FOLD) {
-                    mma_step<MT, NT, RAGGED>(part, xs[i], kc, bf, lane,
-                                             mt_live);
+                    mma_step<MT, NT>(part, xs[i], kc, bf, lane);
                 } else {
-                    mma_step<MT, NT, RAGGED>(acc, xs[i], kc, bf, lane,
-                                             mt_live);
+                    mma_step<MT, NT>(acc, xs[i], kc, bf, lane);
                 }
             };
 #pragma unroll
@@ -599,7 +549,7 @@ dequant_mma_body(const uint16_t* __restrict__ x,       // [M, Kp] bf16
     }
     cp_async_wait<0>();
 
-    store_tile<MT, CW>(acc, ws, y, M, N, row0, m_out, wcol, g, t);
+    store_tile<MT, CW>(acc, ws, y, M, N, wcol, g, t);
 }
 
 // B1 (fold, mxuflat): one weight, all M rows.
@@ -612,24 +562,9 @@ dequant_mma_kernel(const uint16_t* __restrict__ x,
                    const float* __restrict__ lut_g, float* __restrict__ ws,
                    uint16_t* __restrict__ y, int M, int Kp, int N, int block,
                    int chunks_per_split) {
-    dequant_mma_body<MT, CW, STAGES, KIND, false, FOLD>(
+    dequant_mma_body<MT, CW, STAGES, KIND, FOLD>(
         x, data, scale, zero, lut_g, ws, y, M, Kp, N, block,
-        chunks_per_split, RaggedArgs{});
-}
-
-// B6: one 128-row tile per block z, its expert's weight.
-template <int MT, int CW, int STAGES, int KIND>
-__global__ void __launch_bounds__(kThreads)
-ragged_mma_kernel(const uint16_t* __restrict__ x,
-                  const uint8_t* __restrict__ data,
-                  const uint16_t* __restrict__ scale,
-                  const uint16_t* __restrict__ zero,
-                  const float* __restrict__ lut_g, float* __restrict__ ws,
-                  uint16_t* __restrict__ y, int M, int Kp, int N, int block,
-                  int chunks_per_split, RaggedArgs ra) {
-    dequant_mma_body<MT, CW, STAGES, KIND, true>(
-        x, data, scale, zero, lut_g, ws, y, M, Kp, N, block,
-        chunks_per_split, ra);
+        chunks_per_split);
 }
 
 // y = bf16(sum over splits of ws), summed in split order
@@ -640,22 +575,6 @@ __global__ void finalize_kernel(const float* __restrict__ ws,
     float v = 0.f;
     for (int s = 0; s < split; ++s) v += ws[(size_t)s * mn + i];
     y[i] = f32_to_bf16(v);
-}
-
-// One launch of B6's dense body: column strips by K splits by 128-row
-// tiles (the split-order sum is the caller's).
-template <int MT, int CW, int STAGES, int KIND>
-void launch_ragged(const void* x, const void* data, const void* scale,
-                   const void* zero, const void* lut, void* ws, void* y,
-                   int M, int Kp, int N, int block, int split, int cps,
-                   const RaggedArgs& ra, cudaStream_t st) {
-    constexpr int cols = kWarps * 32 * CW;
-    ragged_mma_kernel<MT, CW, STAGES, KIND>
-        <<<dim3((N + cols - 1) / cols, split, M / (MT * 16)), kThreads, 0,
-            st>>>((const uint16_t*)x, (const uint8_t*)data,
-                  (const uint16_t*)scale, (const uint16_t*)zero,
-                  (const float*)lut, (float*)ws, (uint16_t*)y, M, Kp, N,
-                  block, cps, ra);
 }
 
 // One launch of a single-kind variant (the int4-layout and scale-folded
@@ -699,222 +618,6 @@ inline bool args_ok(int M, int Kp, int N, int block, int kind, int split,
            && kind <= KIND_I4 && split >= 1 && cps >= 1
            && (split - 1) * cps < nchunks && split * cps >= nchunks
            && (split == 1 || ws != nullptr);
-}
-
-// ---------------------------------------------------------------------------
-// mxu8: 8-bit activations against int4-layout or sym_int8 weights
-// (`_gemv_kernel_mxu8`). x arrives quantized per 32-K block (xq int8
-// [M, Kp], sx f32 [M, Kp / 32], the JAX package's expression, computed by
-// the wrapper). Each quant block is one m16n8k32 s8 x s8 -> s32 mma per
-// n-tile: the integer block partial is exact, and then adds into the f32
-// sum as (partial * s[r, n]) * sx[m, r]. The weight words load as in the
-// bf16 bodies (Words with Q8's row map); a lane's four k of one column
-// are widened to s8 with byte permutes: for the int4 layout two bytes'
-// nibbles, sign-extended per byte; for int8 four rows' bytes.
-
-constexpr int kLd8 = kChunk + 16;        // xs8 row stride: 80 B, no ldmatrix
-                                         // bank conflicts
-
-// Copy xq[:, k0:k0+64] into xs as it is (rows >= M and K >= Kp as zeros).
-template <int MT>
-__device__ __forceinline__ void stage_x8(uint8_t (*xs)[kLd8],
-                                         const int8_t* __restrict__ xq,
-                                         int M, int Kp, int k0, int tid) {
-    for (int i = tid; i < MT * 16 * (kChunk / 16); i += kThreads) {
-        const int m = i / (kChunk / 16);
-        const int k = k0 + 16 * (i % (kChunk / 16));
-        const bool ok = m < M && k < Kp;
-        cp_async16(&xs[m][k - k0], ok ? xq + (size_t)m * Kp + k : xq,
-                   ok ? 16 : 0);
-    }
-}
-
-// sx of this thread's C rows (g, g + 8 of each m-tile) for the chunk's
-// two blocks (0 past M or past the valid K).
-template <int MT>
-__device__ __forceinline__ void load_sx(float (&r)[2][MT][2],
-                                        const float* __restrict__ sx, int M,
-                                        int nblk, int blk0, int klen, int g) {
-#pragma unroll
-    for (int b = 0; b < 2; ++b) {
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int row = mt * 16 + g + 8 * h;
-                r[b][mt][h] = (32 * b < klen && row < M)
-                                  ? __ldg(sx + (size_t)row * nblk + blk0 + b)
-                                  : 0.f;
-            }
-        }
-    }
-}
-
-// s8 B fragments of quant block b of the chunk: bf[4c + j] = {k 4t..4t+3,
-// k 16+4t..16+4t+3} of this thread's column 4c + j.
-template <int KIND, int CW>
-__device__ __forceinline__ void widen_step(
-    const Words<KIND, CW, false, true>& f, int b, uint32_t (*bf)[2]) {
-#pragma unroll
-    for (int c = 0; c < CW; ++c) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const uint32_t sel = j | ((4 + j) << 4);
-#pragma unroll
-            for (int r = 0; r < 2; ++r) {
-                if (KIND == KIND_I4) {
-                    // rows 2t, 2t+1 (+8): byte j of each, four nibbles
-                    const uint32_t p = __byte_perm(f.w[b][2 * r][c],
-                                                   f.w[b][2 * r + 1][c], sel);
-                    const uint32_t v = __byte_perm(p & 0x0f0fu,
-                                                   (p >> 4) & 0x0f0fu,
-                                                   0x5140);
-                    bf[4 * c + j][r] =
-                        __vsub4(v ^ 0x08080808u, 0x08080808u);
-                } else {                 // KIND_SYM8: rows 4t..4t+3 (+16)
-                    const uint32_t lo = __byte_perm(f.w[2 * b + r][0][c],
-                                                    f.w[2 * b + r][1][c], sel);
-                    const uint32_t hi = __byte_perm(f.w[2 * b + r][2][c],
-                                                    f.w[2 * b + r][3][c], sel);
-                    bf[4 * c + j][r] = __byte_perm(lo, hi, 0x5410);
-                }
-            }
-        }
-    }
-}
-
-template <int MT, int CW, int STAGES, int KIND>
-__global__ void __launch_bounds__(kThreads)
-q8_mma_kernel(const int8_t* __restrict__ xq,     // [M, Kp] int8
-              const float* __restrict__ sx,      // [M, Kp/32] f32
-              const uint8_t* __restrict__ data,  // [Kp/2, N] | [Kp, N]
-              const uint16_t* __restrict__ scale,  // [Kp/32, N] bf16
-              float* __restrict__ ws, uint16_t* __restrict__ y, int M,
-              int Kp, int N, int chunks_per_split) {
-    static_assert(KIND == KIND_I4 || KIND == KIND_SYM8, "mxu8 weights");
-    constexpr int NT = 4 * CW;
-    constexpr int kWarpCols = 8 * NT;
-    __shared__ __align__(16) uint8_t xs[STAGES][MT * 16][kLd8];
-
-    const int tid = threadIdx.x;
-    const int warp = tid >> 5;
-    const int lane = tid & 31;
-    const int g = lane >> 2;
-    const int t = lane & 3;
-    const int wcol = (blockIdx.x * kWarps + warp) * kWarpCols;
-    const int ncol = wcol + g * 4 * CW;
-    const bool col_ok = ncol < N;
-    const int ccol = wcol + 8 * CW * t;
-    const int nblk = Kp / 32;
-
-    float acc[MT][NT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
-        }
-    }
-
-    const int nchunks = (Kp + kChunk - 1) / kChunk;
-    const int c_begin = blockIdx.y * chunks_per_split;
-    const int c_end = min(nchunks, c_begin + chunks_per_split);
-
-    Words<KIND, CW, false, true> ring[STAGES];
-    float sxr[STAGES][2][MT][2];
-#pragma unroll
-    for (int i = 0; i < STAGES - 1; ++i) {
-        const int c = c_begin + i;
-        if (c < c_end) {
-            const int klen = min(kChunk, Kp - c * kChunk);
-            stage_x8<MT>(xs[i], xq, M, Kp, c * kChunk, tid);
-            load_chunk<KIND, CW, false, true>(ring[i], data, scale, nullptr,
-                                              c * kChunk, klen, N, ncol,
-                                              col_ok, ccol, 32, t);
-            load_sx<MT>(sxr[i], sx, M, nblk, c * (kChunk / 32), klen, g);
-        }
-        cp_async_commit();
-    }
-    for (int c0 = c_begin; c0 < c_end; c0 += STAGES) {
-#pragma unroll
-        for (int i = 0; i < STAGES; ++i) {
-            const int c = c0 + i;
-            if (c >= c_end) break;
-            const int cn = c + STAGES - 1;
-            const int sn = (i + STAGES - 1) % STAGES;
-            if (cn < c_end) {
-                const int kn = min(kChunk, Kp - cn * kChunk);
-                stage_x8<MT>(xs[sn], xq, M, Kp, cn * kChunk, tid);
-                load_chunk<KIND, CW, false, true>(
-                    ring[sn], data, scale, nullptr, cn * kChunk, kn, N, ncol,
-                    col_ok, ccol, 32, t);
-                load_sx<MT>(sxr[sn], sx, M, nblk, cn * (kChunk / 32), kn, g);
-            }
-            cp_async_commit();
-            cp_async_wait<STAGES - 1>();   // chunk c's x has landed
-            __syncthreads();
-
-            const int klen = min(kChunk, Kp - c * kChunk);
-#pragma unroll
-            for (int b = 0; b < kChunk / 32; ++b) {
-                if (32 * b >= klen) continue;
-                uint32_t bf[NT][2];
-                widen_step<KIND, CW>(ring[i], b, bf);
-#pragma unroll
-                for (int mt = 0; mt < MT; ++mt) {
-                    uint32_t a[4];
-                    ldmatrix_x4(a, &xs[i][mt * 16 + (lane & 15)]
-                                         [32 * b + (lane >> 4) * 16]);
-#pragma unroll
-                    for (int j = 0; j < NT; ++j) {
-                        int part[4] = {0, 0, 0, 0};
-                        mma_s8(part, a, bf[j][0], bf[j][1]);
-#pragma unroll
-                        for (int e = 0; e < 4; ++e) {
-                            const uint32_t w2 =
-                                ring[i].s[b][2 * CW * (e & 1) + (j >> 1)];
-                            const float sc = (j & 1) ? bf16_hi(w2)
-                                                     : bf16_lo(w2);
-                            acc[mt][j][e] += __fmul_rn(
-                                __fmul_rn((float)part[e], sc),
-                                sxr[i][b][mt][e >> 1]);
-                        }
-                    }
-                }
-            }
-            __syncthreads();               // xs[i] free for reuse
-        }
-    }
-    cp_async_wait<0>();
-    store_tile<MT, CW>(acc, ws, y, M, N, 0, M, wcol, g, t);
-}
-
-// One launch of the mxu8 body for KIND (I4 or SYM8) and the split-order
-// sum when split > 1. Returns the cudaError_t of the launches.
-template <int MT, int CW, int STAGES, int KIND>
-int launch_q8(const void* xq, const void* sx, const void* data,
-              const void* scale, void* ws, void* y, int M, int Kp, int N,
-              int split, int cps, cudaStream_t st) {
-    constexpr int cols = kWarps * 32 * CW;
-    q8_mma_kernel<MT, CW, STAGES, KIND>
-        <<<dim3((N + cols - 1) / cols, split), kThreads, 0, st>>>(
-            (const int8_t*)xq, (const float*)sx, (const uint8_t*)data,
-            (const uint16_t*)scale, (float*)ws, (uint16_t*)y, M, Kp, N, cps);
-    if (split > 1) {
-        const int mn = M * N;
-        finalize_kernel<<<(mn + 255) / 256, 256, 0, st>>>(
-            (const float*)ws, (uint16_t*)y, split, mn);
-    }
-    return (int)cudaGetLastError();
-}
-
-template <int MT, int CW, int STAGES, int KIND>
-int q8_blocks_per_sm() {
-    int n = 0;
-    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, q8_mma_kernel<MT, CW, STAGES, KIND>, kThreads, 0);
-    return e == cudaSuccess ? n : 0;
 }
 
 }  // namespace dqmma

@@ -1,18 +1,22 @@
 // The small-M dequant matmul: y[M, N] = x[M, Kp] . W[Kp, N] over
-// block-quantized W for M <= 32, on mma.sync m16n8k16 (bf16 in, f32
-// accumulate). It is the body of B1's std and mxu decode GEMVs
-// (dequant_gemv.cu, dequant_variants.cu body 0) and of B6's decode tiles
-// (moe_dispatch.cu, the small-M entry).
+// block-quantized or dense bf16 W for M <= 32, on mma.sync (m16n8k16, bf16
+// in, f32 accumulate; the Q8 policy m16n8k32, s8 in, s32 accumulate). It is
+// the body of B1's std, mxu and mxu8 decode GEMVs (dequant_gemv.cu,
+// dequant_variants.cu bodies 0 and 3) and of B6's decode tiles over a
+// quantized or a dense bf16 expert stack (moe_dispatch.cu, the small-M
+// entry).
 //
 // Replaces bigdl_tpu/ops/pallas/dequant_matmul.py::_q_gemv_pallas (L473:
-// `_gemv_kernel` L144, `_gemv_kernel_mxu` L234) and the decode tiles of
+// `_gemv_kernel` L144, `_gemv_kernel_mxu` L234, `_gemv_kernel_mxu8` L284)
+// and the decode tiles of
 // bigdl_tpu/ops/pallas/moe_dispatch.py::ragged_expert_matmul (L90,
-// `_ragged_kernel_q` L66). It computes what they compute and does not
-// carry the Pallas blocks over.
+// `_ragged_kernel_q` L66, `_ragged_kernel_dense` L84). It computes what they
+// compute and does not carry the Pallas blocks over.
 //
 // Bound on the H100: bytes. At M <= 32 a sym_int4 weight costs 4.5 bits of
-// device memory and 2 M flops, so streaming the packed planes at 3.35 TB/s
-// is the floor (Llama-2-7B's gate_up, 4096 x 22016: 51 MB, 0.0153 ms).
+// device memory and 2 M flops (a bf16 weight 16 bits), so streaming the
+// planes at 3.35 TB/s is the floor (Llama-2-7B's gate_up, 4096 x 22016:
+// 51 MB, 0.0153 ms).
 //
 // Design.
 // - A and B are swapped. The dequantized weights are the mma A operand, 16
@@ -28,7 +32,19 @@
 //   permutation. The C rows a lane holds are the columns whose codes it
 //   loaded, so FOLD (mxu) scales each quant block's f32 sum with the scales
 //   it loaded beside the codes: one scale load, one set of C fragments
-//   (the block's sum lives for two mma).
+//   (the block's sum lives for two mma). A dense bf16 stack's rows pair
+//   into the A fragment by byte permutes, no decode (8 weights a 16-byte
+//   load at cw 2).
+// - Q8 (mxu8): x is quantized inside the launch. Each warp quantizes the
+//   32-K blocks of every x chunk it stages, with the JAX package's
+//   expression, straight into the registers of the m16n8k32 B fragments
+//   (a lane's eight values of a block are its fragment; the block's amax
+//   is reduced over four lanes), so no code tile passes through shared
+//   memory. The weights' codes (int4-layout nibbles or sym_int8 bytes)
+//   widen to s8 four columns at a time into the A fragments (a 4 x 4 byte
+//   transpose), and each quant block's exact int32 partial is scaled by
+//   s[r, n] (loaded beside the codes) and sx[m, r] in f32. One launch a
+//   call: no quantize launches, no workspace of its own.
 // - Each warp streams its own chunks of 64 K (chunk c + 4i of the block's
 //   range) with its own x ring in shared memory (cp.async, warp barriers
 //   only). The 4 warps of a block share one strip of 32 CW columns and add
@@ -47,8 +63,11 @@
 //   buffer.
 //
 // Numerics do not change. STD: f32 code times f32 scale (plus zero),
-// rounded once to bf16, products summed in f32. FOLD (int4 layout, block
-// 32): raw codes, each 32-K block summed in f32, times the f32 column scale.
+// rounded once to bf16, products summed in f32 (a dense stack: its bf16
+// weights as they are). FOLD (int4 layout, block 32): raw codes, each 32-K
+// block summed in f32, times the f32 column scale. Q8: exact int32 block
+// partials, times the f32 scale, times the f32 activation scale, summed in
+// f32.
 //
 // RAGGED (B6): block z takes 128-row tile z of x, expert tile_expert[z] of
 // an [E, ...] stack, and its first tile_rows[z] rows, at most 8 NT (the
@@ -72,7 +91,7 @@ constexpr int kTile = 128;               // rows of one B6 token tile
 template <int KIND, int CW>
 __host__ __device__ constexpr int stage_regs() {
     using W = Words<KIND, CW>;
-    return W::kUnits * (4 * W::kRowWords + 2 * CW) +
+    return W::kUnits * (4 * W::kRowWords + (KIND == KIND_BF16 ? 0 : 2 * CW)) +
            (KIND == KIND_ASYM4 ? W::kUnits * 2 * CW : 0);
 }
 
@@ -179,19 +198,32 @@ __device__ __forceinline__ void chunk_mma(float (*acc)[NT][4],
         for (int p = 0; p < 2 * CW; ++p) {
             // tile p: rows g and g + 8 are the lane's columns 2p and 2p + 1
             uint32_t a[NS][4];
+            if constexpr (KIND == KIND_BF16) {
+                // columns 2p and 2p + 1 are the halves of word p of rows
+                // 2t, 2t+1 (k slots 2t, 2t+1) and 2t+8, 2t+9
 #pragma unroll
-            for (int st = 0; st < NS; ++st) {
-                uint32_t b0[2], b1[2];
-                dqmma::dequant_col<KIND, CW, FOLD>(f, u, st == 1, lut,
-                                                   (2 * p) >> 2, (2 * p) & 3,
-                                                   b0);
-                dqmma::dequant_col<KIND, CW, FOLD>(f, u, st == 1, lut,
-                                                   (2 * p + 1) >> 2,
-                                                   (2 * p + 1) & 3, b1);
-                a[st][0] = b0[0];
-                a[st][1] = b1[0];
-                a[st][2] = b0[1];
-                a[st][3] = b1[1];
+                for (int r = 0; r < 2; ++r) {
+                    a[0][2 * r] = __byte_perm(f.w[u][2 * r][p],
+                                              f.w[u][2 * r + 1][p], 0x5410);
+                    a[0][2 * r + 1] = __byte_perm(f.w[u][2 * r][p],
+                                                  f.w[u][2 * r + 1][p],
+                                                  0x7632);
+                }
+            } else {
+#pragma unroll
+                for (int st = 0; st < NS; ++st) {
+                    uint32_t b0[2], b1[2];
+                    dqmma::dequant_col<KIND, CW, FOLD>(f, u, st == 1, lut,
+                                                       (2 * p) >> 2,
+                                                       (2 * p) & 3, b0);
+                    dqmma::dequant_col<KIND, CW, FOLD>(f, u, st == 1, lut,
+                                                       (2 * p + 1) >> 2,
+                                                       (2 * p + 1) & 3, b1);
+                    a[st][0] = b0[0];
+                    a[st][1] = b1[0];
+                    a[st][2] = b0[1];
+                    a[st][3] = b1[1];
+                }
             }
 #pragma unroll
             for (int nt = 0; nt < NT; ++nt) {
@@ -232,7 +264,155 @@ __device__ __forceinline__ void store_bf16x4(uint16_t* y, float a, float b,
     *reinterpret_cast<uint2*>(y) = o;
 }
 
-template <int NT, int CW, int KIND, bool FOLD, bool RAGGED>
+// Two s32 codes (in [-127, 127]) a and b, c and d, as the bytes of a word
+__device__ __forceinline__ uint32_t pack_s8x4(int a, int b, int c, int d) {
+    return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
+                       0x5410);
+}
+
+// Quantize quant block b of a warp's staged x chunk straight into the
+// m16n8k32 B fragments: lane (g, t) holds token 8 nt + g's k slots
+// 4t..4t+3 (bx[nt][0]) and 16+4t..16+4t+3 (bx[nt][1]), and the block's
+// amax over its 32 values is reduced over the four lanes of g. The JAX
+// package's expression (`_q_gemv_pallas` L532-537): amax of the block's
+// bf16 values in f32, sx = amax * f32(1 / 127), inv = 1 / sx (0 where sx
+// is 0; the IEEE reciprocal, the build uses no fast math), code = x * inv
+// rounded half to even. sxr[nt] gets the sx of the lane's C columns,
+// tokens 8 nt + 2t and 2t + 1.
+template <int NT>
+__device__ __forceinline__ void quantize_b(uint32_t (&bx)[NT][2],
+                                           float (&sxr)[NT][2],
+                                           const uint16_t (*xs)[kLd], int b,
+                                           int nt_live, int lane) {
+    const int g = lane >> 2;
+    const int t = lane & 3;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+        if (nt >= nt_live) continue;
+        const uint16_t* row = xs[8 * nt + g] + 32 * b + 4 * t;
+        const uint2 lo = *reinterpret_cast<const uint2*>(row);
+        const uint2 hi = *reinterpret_cast<const uint2*>(row + 16);
+        const uint32_t w[4] = {lo.x, lo.y, hi.x, hi.y};
+        float f[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            f[2 * i] = dqmma::bf16_lo(w[i]);
+            f[2 * i + 1] = dqmma::bf16_hi(w[i]);
+        }
+        // |x| of a bf16 orders as its bits with the sign cleared: the
+        // largest of the eight, two at a time, then as the f32 it is
+        const uint32_t m2 = __vmaxu2(__vmaxu2(w[0] & 0x7fff7fffu,
+                                              w[1] & 0x7fff7fffu),
+                                     __vmaxu2(w[2] & 0x7fff7fffu,
+                                              w[3] & 0x7fff7fffu));
+        float amax = fmaxf(dqmma::bf16_lo(m2), dqmma::bf16_hi(m2));
+        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
+        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
+        const float sx = __fmul_rn(amax, 1.0f / 127.0f);
+        const float inv = sx == 0.f ? 0.f : __frcp_rn(sx);
+        int q[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) q[i] = __float2int_rn(__fmul_rn(f[i], inv));
+        bx[nt][0] = pack_s8x4(q[0], q[1], q[2], q[3]);
+        bx[nt][1] = pack_s8x4(q[4], q[5], q[6], q[7]);
+        sxr[nt][0] = __shfl_sync(0xffffffffu, sx, (2 * t) << 2);
+        sxr[nt][1] = __shfl_sync(0xffffffffu, sx, (2 * t + 1) << 2);
+    }
+}
+
+// Byte j of each of four rows' words as the four bytes of column j:
+// c[j] = {r0.bj, r1.bj, r2.bj, r3.bj}.
+__device__ __forceinline__ void transpose_bytes(uint32_t r0, uint32_t r1,
+                                                uint32_t r2, uint32_t r3,
+                                                uint32_t (&c)[4]) {
+    const uint32_t t0 = __byte_perm(r0, r1, 0x5140);
+    const uint32_t t1 = __byte_perm(r2, r3, 0x5140);
+    const uint32_t t2 = __byte_perm(r0, r1, 0x7362);
+    const uint32_t t3 = __byte_perm(r2, r3, 0x7362);
+    c[0] = __byte_perm(t0, t1, 0x5410);
+    c[1] = __byte_perm(t0, t1, 0x7632);
+    c[2] = __byte_perm(t2, t3, 0x5410);
+    c[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+// The s8 codes of the lane's four columns 4c .. 4c + 3 in quant block b of
+// a chunk (Q8's row map): v[r][j] holds column 4c + j's k slots 4t..4t+3
+// (r 0) and 16+4t..16+4t+3 (r 1). The int4 layout: the low and high
+// nibbles of packed rows 2t, 2t+1 (K rows 4t..4t+3), each sign-extended to
+// a byte four at a time; int8: rows 4t..4t+3's bytes.
+template <int KIND, int CW>
+__device__ __forceinline__ void widen_word(
+    const Words<KIND, CW, false, true>& f, int b, int c,
+    uint32_t (&v)[2][4]) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        if constexpr (KIND == KIND_I4) {
+            const uint32_t w0 = f.w[b][2 * r][c];
+            const uint32_t w1 = f.w[b][2 * r + 1][c];
+            // (n ^ 8) - 8 a byte: the nibble n as a signed byte
+            auto s8 = [](uint32_t w) {
+                return __vsub4(lop3<0x6A>(w, 0x0f0f0f0fu, 0x08080808u),
+                               0x08080808u);
+            };
+            transpose_bytes(s8(w0), s8(w0 >> 4), s8(w1), s8(w1 >> 4), v[r]);
+        } else {
+            transpose_bytes(f.w[2 * b + r][0][c], f.w[2 * b + r][1][c],
+                            f.w[2 * b + r][2][c], f.w[2 * b + r][3][c], v[r]);
+        }
+    }
+}
+
+// One chunk's Q8 products: per quant block, x's codes quantized into the
+// live n8 B tiles, against the lane's 2 CW 16-column s8 A tiles, each
+// int32 partial times the column's scale and then the token's sx, in f32.
+template <int NT, int CW, int KIND>
+__device__ __forceinline__ void chunk_mma_q8(float (*acc)[NT][4],
+                                             const Words<KIND, CW, false,
+                                                         true>& f,
+                                             const uint16_t (*xs)[kLd],
+                                             int klen, int nt_live,
+                                             int lane) {
+#pragma unroll
+    for (int b = 0; b < kChunk / 32; ++b) {
+        if (32 * b >= klen) continue;
+        uint32_t bx[NT][2];
+        float sxr[NT][2];
+        quantize_b<NT>(bx, sxr, xs, b, nt_live, lane);
+        // block b's scales of the lane's columns (int4 layout: unit b;
+        // int8: unit 2b, 16 K a unit)
+        const uint32_t* sw = f.s[KIND == KIND_I4 ? b : 2 * b];
+#pragma unroll
+        for (int c = 0; c < CW; ++c) {
+            uint32_t v[2][4];
+            widen_word<KIND, CW>(f, b, c, v);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                // tile p: rows g and g + 8 are the lane's columns 2p, 2p + 1
+                const int p = 2 * c + h;
+                const uint32_t a[4] = {v[0][2 * h], v[0][2 * h + 1],
+                                       v[1][2 * h], v[1][2 * h + 1]};
+                const float s0 = dqmma::bf16_lo(sw[p]);
+                const float s1 = dqmma::bf16_hi(sw[p]);
+#pragma unroll
+                for (int nt = 0; nt < NT; ++nt) {
+                    if (nt >= nt_live) continue;
+                    int part[4] = {0, 0, 0, 0};
+                    mma_s8(part, a, bx[nt][0], bx[nt][1]);
+                    acc[p][nt][0] += __fmul_rn(__fmul_rn((float)part[0], s0),
+                                               sxr[nt][0]);
+                    acc[p][nt][1] += __fmul_rn(__fmul_rn((float)part[1], s0),
+                                               sxr[nt][1]);
+                    acc[p][nt][2] += __fmul_rn(__fmul_rn((float)part[2], s1),
+                                               sxr[nt][0]);
+                    acc[p][nt][3] += __fmul_rn(__fmul_rn((float)part[3], s1),
+                                               sxr[nt][1]);
+                }
+            }
+        }
+    }
+}
+
+template <int NT, int CW, int KIND, bool FOLD, bool RAGGED, bool Q8>
 __device__ __forceinline__ void
 smallm_body(const uint16_t* __restrict__ x,       // [M, Kp] bf16
             const uint8_t* __restrict__ data,     // [Kp/2, N] | [Kp, N]
@@ -252,7 +432,9 @@ smallm_body(const uint16_t* __restrict__ x,       // [M, Kp] bf16
     // the kind's quant block (args_ok checks the caller's)
     constexpr int kBlock = dqmma::kind_block<KIND>();
     static_assert(!FOLD || KIND == KIND_I4, "FOLD reads the int4 layout");
-    static_assert(!RAGGED || !FOLD, "B6 takes the std numerics");
+    static_assert(!RAGGED || (!FOLD && !Q8), "B6 takes the std numerics");
+    static_assert(!Q8 || (!FOLD && (KIND == KIND_I4 || KIND == KIND_SYM8)),
+                  "Q8 reads int4-layout or sym_int8 weights");
     extern __shared__ __align__(16) uint8_t smem[];
     __shared__ float lut[16];
     __shared__ int is_last;
@@ -316,15 +498,15 @@ smallm_body(const uint16_t* __restrict__ x,       // [M, Kp] bf16
 
     // Chunk i's words sit in ring[i % STAGES], its x in xs[i % STAGES]; the
     // loop is unrolled by STAGES so every slot index is a constant.
-    Words<KIND, CW> ring[STAGES];
+    Words<KIND, CW, false, Q8> ring[STAGES];
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
         if (s < mine) {
             const int k0 = (c0 + kWarps * s) * kChunk;
             stage_rows<R>(xs[s], x, m_live, 8 * nt_live, Kp, k0, lane);
-            dqmma::load_chunk<KIND, CW>(ring[s], data, scale, zero, k0,
-                                        min(kChunk, Kp - k0), N, ncol,
-                                        col_ok, 0, kBlock, t);
+            dqmma::load_chunk<KIND, CW, false, Q8>(
+                ring[s], data, scale, zero, k0, min(kChunk, Kp - k0), N,
+                ncol, col_ok, 0, kBlock, t);
         }
         cp_async_commit();
     }
@@ -339,17 +521,23 @@ smallm_body(const uint16_t* __restrict__ x,       // [M, Kp] bf16
             if (in < mine) {
                 const int k0 = (c0 + kWarps * in) * kChunk;
                 stage_rows<R>(xs[sn], x, m_live, 8 * nt_live, Kp, k0, lane);
-                dqmma::load_chunk<KIND, CW>(ring[sn], data, scale, zero, k0,
-                                            min(kChunk, Kp - k0), N, ncol,
-                                            col_ok, 0, kBlock, t);
+                dqmma::load_chunk<KIND, CW, false, Q8>(
+                    ring[sn], data, scale, zero, k0, min(kChunk, Kp - k0), N,
+                    ncol, col_ok, 0, kBlock, t);
             }
             cp_async_commit();
             cp_async_wait<STAGES - 1>();   // chunk i's x has landed
             __syncwarp();
             const int k0 = (c0 + kWarps * i) * kChunk;
-            chunk_mma<NT, CW, KIND, FOLD>(acc, ring[s], xs[s],
-                                          min(kChunk, Kp - k0), nt_live,
-                                          lut, lane);
+            if constexpr (Q8) {
+                chunk_mma_q8<NT, CW, KIND>(acc, ring[s], xs[s],
+                                           min(kChunk, Kp - k0), nt_live,
+                                           lane);
+            } else {
+                chunk_mma<NT, CW, KIND, FOLD>(acc, ring[s], xs[s],
+                                              min(kChunk, Kp - k0), nt_live,
+                                              lut, lane);
+            }
             __syncwarp();                  // xs[s] free for its refill
         }
     }
@@ -457,7 +645,7 @@ smallm_body(const uint16_t* __restrict__ x,       // [M, Kp] bf16
     }
 }
 
-template <int NT, int CW, int KIND, bool FOLD>
+template <int NT, int CW, int KIND, bool FOLD, bool Q8>
 __global__ void __launch_bounds__(kThreads, min_blocks<NT, KIND>())
 smallm_gemv_kernel(const uint16_t* __restrict__ x,
                    const uint8_t* __restrict__ data,
@@ -466,9 +654,10 @@ smallm_gemv_kernel(const uint16_t* __restrict__ x,
                    const float* __restrict__ lut_g, float* __restrict__ ws,
                    unsigned* __restrict__ tickets, uint16_t* __restrict__ y,
                    int M, int Kp, int N, int chunks_per_split) {
-    smallm_body<NT, CW, KIND, FOLD, false>(x, data, scale, zero, lut_g, ws,
-                                           tickets, y, M, Kp, N,
-                                           chunks_per_split, RaggedArgs{});
+    smallm_body<NT, CW, KIND, FOLD, false, Q8>(x, data, scale, zero, lut_g,
+                                               ws, tickets, y, M, Kp, N,
+                                               chunks_per_split,
+                                               RaggedArgs{});
 }
 
 template <int NT, int CW, int KIND>
@@ -481,19 +670,20 @@ smallm_ragged_kernel(const uint16_t* __restrict__ x,
                      unsigned* __restrict__ tickets, uint16_t* __restrict__ y,
                      int M, int Kp, int N, int chunks_per_split,
                      RaggedArgs ra) {
-    smallm_body<NT, CW, KIND, false, true>(x, data, scale, zero, lut_g, ws,
-                                           tickets, y, M, Kp, N,
-                                           chunks_per_split, ra);
+    smallm_body<NT, CW, KIND, false, true, false>(x, data, scale, zero,
+                                                  lut_g, ws, tickets, y, M,
+                                                  Kp, N, chunks_per_split,
+                                                  ra);
 }
 
 // The kernel of a variant, with its dynamic shared memory allowed past
 // 48 KB once (0, or the cudaError_t of the attribute call).
-template <int NT, int CW, int KIND, bool FOLD, bool RAGGED>
+template <int NT, int CW, int KIND, bool FOLD, bool RAGGED, bool Q8 = false>
 int prepare(const void** fn) {
     if constexpr (RAGGED) {
         *fn = (const void*)smallm_ragged_kernel<NT, CW, KIND>;
     } else {
-        *fn = (const void*)smallm_gemv_kernel<NT, CW, KIND, FOLD>;
+        *fn = (const void*)smallm_gemv_kernel<NT, CW, KIND, FOLD, Q8>;
     }
     constexpr int bytes = smem_bytes<KIND, NT, CW>();
     if constexpr (bytes > 48 * 1024) {
@@ -506,13 +696,13 @@ int prepare(const void** fn) {
 
 // One launch over strips of 32 CW columns x split x tiles (B6: one grid z a
 // token tile). Returns the cudaError_t of the launch.
-template <int NT, int CW, int KIND, bool FOLD, bool RAGGED>
+template <int NT, int CW, int KIND, bool FOLD, bool RAGGED, bool Q8 = false>
 int launch(const void* x, const void* data, const void* scale,
            const void* zero, const void* lut, void* ws, void* tickets,
            void* y, int M, int Kp, int N, int split, int cps,
            int tiles, const RaggedArgs& ra, cudaStream_t st) {
     const void* fn;
-    const int err = prepare<NT, CW, KIND, FOLD, RAGGED>(&fn);
+    const int err = prepare<NT, CW, KIND, FOLD, RAGGED, Q8>(&fn);
     if (err) return err;
     const dim3 grid((N + 32 * CW - 1) / (32 * CW), split, tiles);
     constexpr int bytes = smem_bytes<KIND, NT, CW>();
@@ -522,19 +712,21 @@ int launch(const void* x, const void* data, const void* scale,
             (const uint16_t*)zero, (const float*)lut, (float*)ws,
             (unsigned*)tickets, (uint16_t*)y, M, Kp, N, cps, ra);
     } else {
-        smallm_gemv_kernel<NT, CW, KIND, FOLD><<<grid, kThreads, bytes, st>>>(
-            (const uint16_t*)x, (const uint8_t*)data, (const uint16_t*)scale,
-            (const uint16_t*)zero, (const float*)lut, (float*)ws,
-            (unsigned*)tickets, (uint16_t*)y, M, Kp, N, cps);
+        smallm_gemv_kernel<NT, CW, KIND, FOLD, Q8>
+            <<<grid, kThreads, bytes, st>>>(
+                (const uint16_t*)x, (const uint8_t*)data,
+                (const uint16_t*)scale, (const uint16_t*)zero,
+                (const float*)lut, (float*)ws, (unsigned*)tickets,
+                (uint16_t*)y, M, Kp, N, cps);
     }
     return (int)cudaGetLastError();
 }
 
 // Resident blocks per SM of a variant (0 on error).
-template <int NT, int CW, int KIND, bool FOLD, bool RAGGED>
+template <int NT, int CW, int KIND, bool FOLD, bool RAGGED, bool Q8 = false>
 int blocks_per_sm() {
     const void* fn;
-    if (prepare<NT, CW, KIND, FOLD, RAGGED>(&fn)) return 0;
+    if (prepare<NT, CW, KIND, FOLD, RAGGED, Q8>(&fn)) return 0;
     int n = 0;
     const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &n, fn, kThreads, smem_bytes<KIND, NT, CW>());
@@ -549,6 +741,18 @@ int blocks_per_sm() {
     if ((M) >= 1 && (M) <= 8 && (cw) == 4) F(1, 4)                          \
     if ((M) >= 1 && (M) <= 8 && (cw) == 1) F(1, 1)                          \
     if ((M) > 8 && (M) <= 16 && (cw) == 4) F(2, 4)                          \
+    if ((M) > 8 && (M) <= 16 && (cw) == 1) F(2, 1)                          \
+    if ((M) > 16 && (M) <= 32 && (cw) == 2) F(4, 2)                         \
+    if ((M) > 16 && (M) <= 32 && (cw) == 1) F(4, 1)                         \
+    return err;
+
+// Calls F(NT, CW) for the dense bf16 variant (B6's small-M entry over a
+// dense stack) that rows M and cw take: 1, 2 or 4 n8 tiles as above, with
+// 16-byte (cw 2: 8 bf16 columns) or 8-byte (cw 1) row loads.
+#define BIGDL_SMALLM_DENSE_VARIANTS(F, M, cw, err)                          \
+    if ((M) >= 1 && (M) <= 8 && (cw) == 2) F(1, 2)                          \
+    if ((M) >= 1 && (M) <= 8 && (cw) == 1) F(1, 1)                          \
+    if ((M) > 8 && (M) <= 16 && (cw) == 2) F(2, 2)                          \
     if ((M) > 8 && (M) <= 16 && (cw) == 1) F(2, 1)                          \
     if ((M) > 16 && (M) <= 32 && (cw) == 2) F(4, 2)                         \
     if ((M) > 16 && (M) <= 32 && (cw) == 1) F(4, 1)                         \

@@ -1,28 +1,30 @@
-// The Hopper dequant GEMM: y[M, N] = x[M, Kp] . W[Kp, N] over
-// block-quantized W for 1 <= M <= 128, on wgmma (bf16 in, f32 accumulate)
-// fed by TMA and an mbarrier ring. It is the body of B2's std and i4
-// prefill GEMMs (dequant_gemm.cu, one entry point for both layouts) and of
-// B6's quantized prefill tiles (moe_dispatch.cu, the tiles entry).
+// The Hopper GEMM body: y[M, N] = x[M, Kp] . W[Kp, N] over block-quantized
+// or dense bf16 W for 1 <= M <= 128, on wgmma (bf16 in, f32 accumulate) fed
+// by TMA and an mbarrier ring. It is the body of B2's std and i4 prefill
+// GEMMs (dequant_gemm.cu, one entry point for both layouts) and of B6's
+// prefill tiles over a quantized or a dense bf16 expert stack
+// (moe_dispatch.cu, the tiles entry).
 //
 // Replaces bigdl_tpu/ops/pallas/dequant_matmul.py::_q_matmul_generic (L641:
 // `_kernel_4bit` L113, `_kernel_int8` L125, `_kernel_i4` L133, summed by
 // `_accumulate` L94) and the prefill tiles of
 // bigdl_tpu/ops/pallas/moe_dispatch.py::ragged_expert_matmul (L90,
-// `_ragged_kernel_q` L66). It computes what they compute and does not carry
-// the Pallas blocks over.
+// `_ragged_kernel_q` L66 and `_ragged_kernel_dense` L84). It computes what
+// they compute and does not carry the Pallas blocks over.
 //
 // Bound on the H100. B2 at M 128 and Llama-2-7B widths: operations (gate_up
 // does 23 GFLOP against 51 MB of packed planes, 0.023 ms at 989 TFLOP/s).
 // B6 over a 256-token Mixtral chunk: bytes (each tile holding rows streams
-// its expert's 33 MB of planes for 52-128 rows). What held the mma.sync body
-// of dequant_mma.cuh back was the work around each weight, not the tensor
-// cores: every thread loaded 4-byte words of codes straight from device
-// memory, synchronously with its dequantization, and mma.sync could not
-// overlap the next step's dequantization.
+// its expert's 33 MB of planes, or 117 MB of a dense bf16 stack, for 52-128
+// rows). What held the mma.sync body of dequant_mma.cuh back was the work
+// around each weight, not the tensor cores: every thread loaded 4-byte
+// words straight from device memory, synchronously with its
+// dequantization, and mma.sync could not overlap the next step's
+// dequantization.
 //
 // Design.
-// - Weights are wgmma's A operand, from registers; x is B, from shared
-//   memory. The body computes y^T tiles: A is 64 output columns (a
+// - Quantized weights are wgmma's A operand, from registers; x is B, from
+//   shared memory. The body computes y^T tiles: A is 64 output columns (a
 //   warpgroup's tile) by 16 K, each warp dequantizing its 16 columns into
 //   the fragment dequant_smallm.cuh builds (lane (g, t) holds columns 2g and
 //   2g + 1 of its warp's 16, as A rows g and g + 8), with dequant_col of
@@ -31,16 +33,27 @@
 //   (128-byte rows, 128-byte swizzle) and the descriptor steps 32 bytes a k
 //   step. n = 64 at M <= 64 and n = 128 above (B6: per tile, from
 //   tile_rows, a branch uniform over the block).
+// - A dense bf16 stack (KIND_BF16) needs no decode: its [64 K, 64 column]
+//   boxes land by TMA as they are (128-byte rows of 64 columns, so column
+//   n is A row n, M-major) and wgmma reads A from shared memory through a
+//   transposed (M-major) descriptor, as it may for 16-bit types. The
+//   consumers then only issue wgmma: four k steps of both tiles a chunk as
+//   one group, one group left in flight while the next chunk's is issued.
+//   (Reading A into registers with ldmatrix.trans instead, a k step
+//   ahead, measured the same; PERF.md.) A stage is 32 KB of weights for 256
+//   columns and 16 KB of x at n 128: four stages fill the shared memory (a
+//   fifth does not fit).
 // - A block is 2 consumer warpgroups (warps 0-7) of two 64-column tiles
 //   each, 256 output columns, and a producer warpgroup (warps 8-11), whose
 //   first warp keeps kStages chunks of 64 K in flight: x's [n, 64] boxes,
 //   the codes' two [32 | 64 packed rows, 128] boxes (128-byte swizzle, so
 //   the consumers' 2-byte reads of rows 2t, 2t+1, 2t+8, 2t+9 hit distinct
-//   banks) and the scale (and zero) box. Consumer warps wait on the stage's
-//   full barrier and release it on its empty one. Nothing of the weights
-//   passes through registers on its way in. setmaxnreg leaves the producer
-//   warpgroup 40 registers a thread and gives the consumers 232: at n = 128
-//   their two tiles hold 128 f32 accumulators a thread.
+//   banks) and the scale (and zero) box, or a dense stack's four bf16
+//   boxes. Consumer warps wait on the stage's full barrier and release it
+//   on its empty one. Nothing of the weights passes through registers on
+//   its way in. setmaxnreg leaves the producer warpgroup 40 registers a
+//   thread and gives the consumers 232: at n = 128 their two tiles hold 128
+//   f32 accumulators a thread.
 // - The dequantization overlaps the product. A k step is one wgmma group
 //   (one wgmma a tile); the A fragments are double buffered: step k's group
 //   is issued, step k + 1's codes are read from shared memory, and after
@@ -67,22 +80,23 @@
 //
 // Loads. x always takes TMA (a 2-D map over [rows, Kp], 64 x 64 boxes; rows
 // past M and K past Kp arrive as zeros). The weight planes take TMA (3-D
-// maps over [E, rows, N], so no box leaves its expert) when N % 16 == 0 and
-// every plane address and expert stride is 16-byte aligned (the Llama and
-// Mixtral widths, and any N % 16 == 0); otherwise (N % 16 != 0, a shape the
-// mma.sync body took) the producer warp copies them with 4-byte cp.async
-// into the same swizzled layout, zero-filling past N, in the same kernel.
-// ops/cuda/dequant_matmul.py::plane_loads makes the same choice.
+// maps over [E, rows, N], so no box leaves its expert) when every row and
+// every plane address and expert stride is 16-byte aligned (N % 16 == 0 for
+// the codes, N % 8 == 0 for bf16 rows: the Llama and Mixtral widths);
+// otherwise the producer warp copies them with 4-byte cp.async into the
+// same swizzled layout, zero-filling past N, in the same kernel.
+// ops/cuda/dequant_matmul.py::plane_loads and
+// ops/cuda/moe_dispatch.py::dense_loads make the same choice.
 //
 // Numerics are the STD policy of dequant_mma.cuh: f32 code times f32 block
 // scale (plus zero for asym, the LUT value for nf4 / fp4 / nf3), rounded
-// once to bf16, x in bf16, products summed in f32.
+// once to bf16, x in bf16, products summed in f32; a dense stack's bf16
+// weights are multiplied as they are.
 //
 // A wait on a barrier phase that never completes traps after ~2 s of
 // clock instead of hanging the card.
 //
-// Out of scope, on dequant_mma.cuh: B1's fold, mxuflat and mxu8 bodies and
-// B6's dense bf16 stack (`_ragged_kernel_dense`, KIND_BF16).
+// Out of scope, on dequant_mma.cuh: B1's fold and mxuflat bodies.
 #pragma once
 
 #include <string.h>
@@ -119,6 +133,8 @@ constexpr int kStg = kTileCols + 4;      // f32 staging row stride
 #endif
 constexpr bool kNoDequant = BIGDL_WGMMA_PROBE != 0;
 constexpr bool kLoadsOnly = BIGDL_WGMMA_PROBE == 1;
+// a dense stack's weight box: 64 K rows of 64 bf16 columns (128 bytes)
+constexpr int kDenseBox = kChunk * 128;
 
 // a compile-time int, for the unrolled k steps
 template <int V>
@@ -137,18 +153,22 @@ __host__ __device__ constexpr int scale_rows(int kind) {
 }
 
 // One stage of the ring, for NT tokens at most: x box(es), the codes' two
-// 128-column boxes, scales, zeros; each 1024-byte aligned where a 128-byte
-// swizzle lands.
+// 128-column boxes (a dense stack: two 64-column bf16 boxes a tile set),
+// scales, zeros; each 1024-byte aligned where a 128-byte swizzle lands.
 template <int NT, int KIND>
 struct Ring {
+    static constexpr bool kDense = KIND == KIND_BF16;
     static constexpr int x_bytes = NT * 128;
     static constexpr int code_off = x_bytes;
-    static constexpr int code_box = code_rows(KIND) * kTileCols;
+    static constexpr int code_box = kDense ? 2 * kDenseBox
+                                           : code_rows(KIND) * kTileCols;
     static constexpr int code_bytes = kTiles * code_box;
     static constexpr int scale_off = code_off + code_bytes;
-    static constexpr int plane_bytes = scale_rows(KIND) * kCols * 2;
-    static constexpr int zero_off = scale_off + 1024;
-    static constexpr int stage = (zero_off + 1024 + 1023) / 1024 * 1024;
+    static constexpr int plane_bytes = kDense ? 0
+                                              : scale_rows(KIND) * kCols * 2;
+    static constexpr int zero_off = scale_off + (kDense ? 0 : 1024);
+    static constexpr int stage =
+        (zero_off + (kDense ? 0 : 1024) + 1023) / 1024 * 1024;
     static constexpr int bytes = kStages * stage;
     // + slack to align the dynamic buffer to 1024 bytes
     static constexpr int smem = bytes + 1024;
@@ -301,6 +321,69 @@ __device__ __forceinline__ void wgmma(float* d, const uint32_t* a,
         wgmma_n128(d, a, desc);
     } else {
         wgmma_n64(d, a, desc);
+    }
+}
+
+// Shared-memory descriptor of an M-major (transposed) bf16 A tile with
+// 128-byte rows of 64 M and the 128-byte swizzle, as TMA lays a dense
+// stack's [64 K, 64 column] box: 8-row K groups 1024 bytes apart (the
+// stride byte offset); the leading byte offset, the stride between 64-wide
+// M atoms, is never reached by a 64-row tile.
+__device__ __forceinline__ uint64_t desc_mn_sw128(uint32_t addr) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4) |
+           ((uint64_t)(kDenseBox >> 4) << 16) |
+           ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+#define BIGDL_ACC8(i)                                                       \
+    "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
+        "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// acc += A (shared memory, 64 x 16, M-major) . B (shared memory, 16 x 64,
+// K-major)
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 1, 0;\n}\n"
+        : BIGDL_ACC8(0), BIGDL_ACC8(8), BIGDL_ACC8(16), BIGDL_ACC8(24)
+        : "l"(da), "l"(db), "r"(1));
+}
+
+// acc += A (shared memory, 64 x 16, M-major) . B (shared memory, 16 x 128,
+// K-major)
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
+                                              uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 1, 0;\n}\n"
+        : BIGDL_ACC8(0), BIGDL_ACC8(8), BIGDL_ACC8(16), BIGDL_ACC8(24),
+          BIGDL_ACC8(32), BIGDL_ACC8(40), BIGDL_ACC8(48), BIGDL_ACC8(56)
+        : "l"(da), "l"(db), "r"(1));
+}
+
+#undef BIGDL_ACC8
+
+template <int NT>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db) {
+    if constexpr (NT == 128) {
+        wgmma_ss_n128(d, da, db);
+    } else {
+        wgmma_ss_n64(d, da, db);
     }
 }
 
@@ -481,6 +564,56 @@ __device__ __forceinline__ void mainloop(float (&acc)[kTiles][NT / 2],
     keep(acc);
 }
 
+// A dense stack's K loop: acc[p] (yT, the warpgroup's 64 columns of tile
+// set p by NT tokens) += W^T . x^T, A from the stage's bf16 boxes (the
+// warpgroup's box of tile set p: 2p + its index). A chunk's four k steps of both tiles are one wgmma group, and once chunk
+// c's group is issued the group of chunk c - 1 is waited for (wait_group 1)
+// and its stage released.
+template <int NT, int RING>
+__device__ __forceinline__ void mainloop_dense(float (&acc)[kTiles][NT / 2],
+                                               uint8_t* ring, uint32_t full,
+                                               uint32_t empty, int nmine,
+                                               int ctid) {
+    using R = Ring<RING, KIND_BF16>;
+    const uint32_t ring_s = smem_u32(ring);
+    const int lane = ctid & 31;
+    const int wg = ctid >> 7;
+#pragma unroll
+    for (int p = 0; p < kTiles; ++p) {
+#pragma unroll
+        for (int i = 0; i < NT / 2; ++i) acc[p][i] = 0.f;
+    }
+    auto box = [&](uint32_t stage, int p) {
+        return stage + R::code_off + (2 * p + wg) * kDenseBox;
+    };
+    for (int c = 0; c < nmine; ++c) {
+        const int s = c % kStages;
+        const uint32_t stage = ring_s + s * R::stage;
+        mbar_wait(full + 8 * s, (c / kStages) & 1);
+        // rows that arrived by cp.async (the generic proxy) before
+        // wgmma (the async proxy) reads them
+        fence_proxy_async();
+        wg_fence();
+#pragma unroll
+        for (int k = 0; k < kChunk / 16; ++k) {
+#pragma unroll
+            for (int p = 0; p < kTiles; ++p) {
+                wgmma_ss<NT>(acc[p], desc_mn_sw128(box(stage, p) +
+                                                   k * 16 * 128),
+                             desc_sw128(stage + 32 * k));
+            }
+        }
+        wg_commit();
+        // chunk c - 1's group is done: its stage is free
+        wg_wait<1>();
+        if (c > 0 && lane == 0) {
+            mbar_arrive(empty + 8 * ((c - 1) % kStages));
+        }
+    }
+    wg_wait<0>();
+    keep(acc);
+}
+
 // The producer warp: chunk i of the block's range into stage i % kStages
 // once its consumers have released it. x by TMA (nbox boxes of 64 token
 // rows from row xrow); the planes by TMA at expert e, or (planes_tma 0) by
@@ -518,7 +651,14 @@ __device__ __forceinline__ void produce(
             for (int b = 0; b < nbox; ++b) {
                 tma_2d(st + b * kXBox * 128, xmap, bar, k0, xrow + kXBox * b);
             }
-            if (tma) {
+            if (tma && KIND == KIND_BF16) {
+                // four [64 K, 64 column] boxes of the expert's bf16 rows
+#pragma unroll
+                for (int b = 0; b < 2 * kTiles; ++b) {
+                    tma_3d(st + R::code_off + b * kDenseBox, cmap, bar,
+                           col0 + 64 * b, crow, e);
+                }
+            } else if (tma) {
 #pragma unroll
                 for (int p = 0; p < kTiles; ++p) {
                     tma_3d(st + R::code_off + p * R::code_box, cmap, bar,
@@ -531,6 +671,24 @@ __device__ __forceinline__ void produce(
         if (tma) {
             __syncwarp();
             mbar_arrive(bar);
+            continue;
+        }
+        if constexpr (KIND == KIND_BF16) {
+            // 128 words a row of 256 bf16 columns, each in its box's
+            // swizzled 16-byte chunk
+            for (int w = lane; w < kChunk * 128; w += 32) {
+                const int r = w >> 7;
+                const int c = (w & 127) * 2;
+                const int cb = 2 * (c & 63);
+                const bool ok = crow + r < rows_c && col0 + c < a.N;
+                const uint32_t dst = st + R::code_off + (c >> 6) * kDenseBox +
+                                     r * 128 +
+                                     ((((cb >> 4) ^ (r & 7)) << 4) | (cb & 15));
+                cp_async4(dst, ok ? data + ((size_t)(crow + r) * a.N + col0 +
+                                            c) * 2
+                                  : a.data, ok ? 4 : 0);
+            }
+            mbar_arrive_cp_async(bar);
             continue;
         }
         // codes: 64 words a row of 256 columns, each in its box's swizzled
@@ -590,7 +748,10 @@ __device__ __forceinline__ void store_row_piece(uint16_t* y, const float* v,
 // the strip summing the splits in order. rows: the tile's rows from acc
 // (B2: M; B6: NT), out: its rows in all (B6: 128, zeros past rows), from
 // row0 of y and of a workspace of ws_rows rows; tix: the strip's ticket.
-template <int NT>
+// A lane's accumulator rows g and g + 8 are its warp's columns 2g and
+// 2g + 1 (the dequantized fragment's order), or g and g + 8 (DENSE: the
+// rows of the transposed box as they are).
+template <int NT, bool DENSE>
 __device__ __forceinline__ void epilogue(const float (&acc)[kTiles][NT / 2],
                                          float* stg, const Args& a,
                                          int* is_last, int rows, int out,
@@ -599,8 +760,9 @@ __device__ __forceinline__ void epilogue(const float (&acc)[kTiles][NT / 2],
     const int lane = ctid & 31;
     const int g = lane >> 2;
     const int t = lane & 3;
-    // the lane's columns of a tile: 2g and 2g + 1 of its warp's 16
-    const int colw = 16 * (ctid >> 5) + 2 * g;
+    // the lane's columns of a tile: 2g and 2g + 1 of its warp's 16 (DENSE:
+    // g and g + 8)
+    const int colw = 16 * (ctid >> 5) + (DENSE ? g : 2 * g);
     const int N = a.N;
     const int split = gridDim.y;
     const bool wide = N % 8 == 0;
@@ -610,10 +772,17 @@ __device__ __forceinline__ void epilogue(const float (&acc)[kTiles][NT / 2],
 #pragma unroll
         for (int j = 0; j < NT / 8; ++j) {
             const int tok = 8 * j + 2 * t;
-            *reinterpret_cast<float2*>(stg + tok * kStg + colw) =
-                make_float2(acc[p][4 * j], acc[p][4 * j + 2]);
-            *reinterpret_cast<float2*>(stg + (tok + 1) * kStg + colw) =
-                make_float2(acc[p][4 * j + 1], acc[p][4 * j + 3]);
+            if constexpr (DENSE) {
+                stg[tok * kStg + colw] = acc[p][4 * j];
+                stg[tok * kStg + colw + 8] = acc[p][4 * j + 2];
+                stg[(tok + 1) * kStg + colw] = acc[p][4 * j + 1];
+                stg[(tok + 1) * kStg + colw + 8] = acc[p][4 * j + 3];
+            } else {
+                *reinterpret_cast<float2*>(stg + tok * kStg + colw) =
+                    make_float2(acc[p][4 * j], acc[p][4 * j + 2]);
+                *reinterpret_cast<float2*>(stg + (tok + 1) * kStg + colw) =
+                    make_float2(acc[p][4 * j + 1], acc[p][4 * j + 3]);
+            }
         }
         bar_consumers();
         const int cp = col0 + kTileCols * p;
@@ -703,24 +872,29 @@ __device__ __forceinline__ void consume(uint8_t* ring, uint32_t full,
                                         int* is_last, int rows, int out,
                                         int row0, int ws_rows, int col0,
                                         int tix, int ctid) {
-    const int lane = ctid & 31;
-    const int g = lane >> 2;
-    const int t = lane & 3;
-    const int q = ctid >> 5;               // the warp's 16-byte chunk
-    // rows unit_row(t, i) for i = 2, 3 are those of i = 0, 1 plus 8 in
-    // both row maps (2t + (i & 1) + 8 (i >> 1); the int4 layout's t + 4i)
-    int off[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        const int r = dqmma::unit_row<KIND, false>(t, i);
-        off[i] = r * 128 + (((q ^ (r & 7)) << 4) | (2 * g));
-    }
-    const int sc = 2 * (16 * q + 2 * g);
     float acc[kTiles][NT / 2];
-    mainloop<NT, RING, KIND>(acc, ring, full, empty, nmine, lut, off, sc,
-                             lane);
-    epilogue<NT>(acc, reinterpret_cast<float*>(ring), a, is_last, rows, out,
-                 row0, ws_rows, col0, tix, ctid);
+    if constexpr (KIND == KIND_BF16) {
+        mainloop_dense<NT, RING>(acc, ring, full, empty, nmine, ctid);
+    } else {
+        const int lane = ctid & 31;
+        const int g = lane >> 2;
+        const int t = lane & 3;
+        const int q = ctid >> 5;           // the warp's 16-byte chunk
+        // rows unit_row(t, i) for i = 2, 3 are those of i = 0, 1 plus 8 in
+        // both row maps (2t + (i & 1) + 8 (i >> 1); the int4 layout's t + 4i)
+        int off[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            const int r = dqmma::unit_row<KIND, false>(t, i);
+            off[i] = r * 128 + (((q ^ (r & 7)) << 4) | (2 * g));
+        }
+        const int sc = 2 * (16 * q + 2 * g);
+        mainloop<NT, RING, KIND>(acc, ring, full, empty, nmine, lut, off, sc,
+                                 lane);
+    }
+    epilogue<NT, KIND == KIND_BF16>(acc, reinterpret_cast<float*>(ring), a,
+                                    is_last, rows, out, row0, ws_rows, col0,
+                                    tix, ctid);
 }
 
 // The kernel body. B2 (RAGGED false; NT 64 or 128 tokens, M <= NT) and B6's
@@ -844,7 +1018,8 @@ struct Maps {
 // The launch's tensor maps: x [rows, Kp] bf16 in 64 x 64 boxes, 128-byte
 // swizzle; with planes_tma the code plane [E, rows, N] in [1, 32 | 64, 128]
 // boxes (128-byte swizzle) and the scale (zero) planes [E, Kp / block, N]
-// in [1, 64 / block, 128] boxes. Returns 0 or an error code.
+// in [1, 64 / block, 128] boxes, or a dense stack's [E, Kp, N] bf16 in
+// [1, 64, 64] boxes (128-byte swizzle). Returns 0 or an error code.
 inline int encode_maps(Maps& m, const void* x, int x_rows, int Kp,
                        const void* data, const void* scale, const void* zero,
                        int N, int kind, int E, long long data_es,
@@ -864,6 +1039,19 @@ inline int encode_maps(Maps& m, const void* x, int x_rows, int Kp,
                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     if (r != CUDA_SUCCESS) return kEncodeError + (int)r;
     if (!planes_tma) return 0;
+    if (kind == KIND_BF16) {
+        // a dense stack [E, Kp, N] bf16 in [1, 64, 64] boxes
+        const cuuint64_t dd[3] = {(cuuint64_t)N, (cuuint64_t)Kp,
+                                  (cuuint64_t)E};
+        const cuuint64_t ds[2] = {(cuuint64_t)N * 2, (cuuint64_t)data_es};
+        const cuuint32_t db[3] = {64, kChunk, 1};
+        r = enc(&m.c, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(data), dd, ds, db, ones,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+        return r != CUDA_SUCCESS ? kEncodeError + (int)r : 0;
+    }
     const int block = kind == KIND_CODEBOOK4 ? 64 : 32;
     const cuuint64_t rows_c = row_units(kind) ? Kp : Kp / 2;
     const cuuint64_t cd[3] = {(cuuint64_t)N, rows_c, (cuuint64_t)E};
@@ -898,6 +1086,12 @@ inline bool planes_tma_ok(int N, const void* data, const void* scale,
     return N % 16 == 0 && al(data) && al(scale) &&
            (zero == nullptr || al(zero)) && data_es % 16 == 0 &&
            (scale_es * 2) % 16 == 0;
+}
+
+// A dense stack may take TMA: 16-byte aligned rows (N % 8 == 0), address
+// and expert stride (what dense_loads in ops/cuda/moe_dispatch.py asks).
+inline bool dense_tma_ok(int N, const void* data, long long data_es) {
+    return N % 8 == 0 && ((uintptr_t)data & 15) == 0 && data_es % 16 == 0;
 }
 
 // The kernel of a variant, with its dynamic shared memory allowed past
@@ -943,8 +1137,8 @@ int occupancy_kind() {
 }
 
 // F<NT, K, RAGGED>(args...) for weight kind `kind`: the canonical
-// quantized kinds, and (not RAGGED) the int4 layout. Returns `err` for any
-// other kind.
+// quantized kinds, (not RAGGED) the int4 layout and (RAGGED) a dense bf16
+// stack. Returns `err` for any other kind.
 #define BIGDL_WG_KINDS(F, NT, RAGGED, err, ...)                             \
     switch (kind) {                                                         \
         case KIND_SYM4: return F<NT, KIND_SYM4, RAGGED>(__VA_ARGS__);       \
@@ -955,6 +1149,11 @@ int occupancy_kind() {
         case KIND_I4:                                                       \
             if constexpr (!RAGGED) {                                        \
                 return F<NT, KIND_I4, false>(__VA_ARGS__);                  \
+            }                                                               \
+            return err;                                                     \
+        case KIND_BF16:                                                     \
+            if constexpr (RAGGED) {                                         \
+                return F<NT, KIND_BF16, true>(__VA_ARGS__);                 \
             }                                                               \
             return err;                                                     \
         default: return err;                                                \
@@ -994,6 +1193,9 @@ int occupancy_nt(int kind) {
         case KIND_SYM8: return occupancy_kind<NT, KIND_SYM8, RAGGED>();
         case KIND_I4:
             if constexpr (!RAGGED) return occupancy_kind<NT, KIND_I4, false>();
+            return 0;
+        case KIND_BF16:
+            if constexpr (RAGGED) return occupancy_kind<NT, KIND_BF16, true>();
             return 0;
         default: return 0;
     }

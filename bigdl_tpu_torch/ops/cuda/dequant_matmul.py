@@ -17,7 +17,8 @@ launch counter            Pallas body                 source
                                                       (*)
 ``dequant_gemv_fold``     B1 ``_gemv_kernel_fold``    dequant_variants.cu
 ``dequant_gemv_mxuflat``  B1 ``_gemv_kernel_mxuflat`` dequant_variants.cu
-``dequant_gemv_mxu8``     B1 ``_gemv_kernel_mxu8``    dequant_mxu8.cu
+``dequant_gemv_mxu8``     B1 ``_gemv_kernel_mxu8``    dequant_variants.cu
+                                                      (*)
 ``dequant_gemm``          B2 ``_kernel_4bit/_int8``   dequant_gemm.cu (**)
 ``dequant_gemm_i4``       B2 ``_kernel_i4``           dequant_gemm.cu (**)
 ========================  ==========================  ===================
@@ -25,8 +26,9 @@ launch counter            Pallas body                 source
 (*) The small-M body makes the weights the mma A operand and x the B
 operand in n8 tiles of tokens; a block is 4 warps on one strip of 32 * cw
 columns, and a K split is summed in split order by the strip's last block
-in the same launch (a ticket a strip, from a buffer that lives for the
-process). One launch a call, no host sync.
+in the same launch (a ticket a strip and the f32 partials, from buffers
+that live for the process). One launch a call, no host sync. mxu8
+quantizes x inside that launch.
 
 (**) The Hopper body makes the weights wgmma's A operand (from registers)
 and x its B operand (from shared memory, by TMA), ``wgmma_tokens(M)``
@@ -44,9 +46,10 @@ raw codes (exact in bf16; a codebook value rounded to bf16) to the product
 and scale each block's f32 partial once: ``plain_q_matmul_fused``, the
 port of ``_q_matmul_xla_fused``. ``mxu8`` quantizes x to int8 per 32-K
 block, takes exact integer block products and scales them in f32:
-``plain_q_matmul_q8``. The int4-layout bodies (mxu, mxuflat, mxu8, i4)
-take only a prepacked sym_int4 weight (``ops/quant.to_mxu_layout``), the
-others only the canonical packing. The kernels read the packed planes
+``plain_q_matmul_q8``, whose quantization ``quantize_x_q8`` runs on the
+CPU only (the kernel quantizes x itself). The int4-layout bodies (mxu,
+mxuflat, mxu8, i4) take only a prepacked sym_int4 weight
+(``ops/quant.to_mxu_layout``), the others only the canonical packing. The kernels read the packed planes
 directly and never materialize the dense weight.
 """
 
@@ -89,15 +92,14 @@ _GEMV = {"std": "dequant_gemv", "mxu": "dequant_gemv_mxu",
          "mxu8": "dequant_gemv_mxu8"}
 _GEMM = {"std": "dequant_gemm", "i4": "dequant_gemm_i4"}
 _VARIANT_BODY = {"dequant_gemv_mxu": 0, "dequant_gemv_fold": 1,
-                 "dequant_gemv_mxuflat": 2}
+                 "dequant_gemv_mxuflat": 2, "dequant_gemv_mxu8": 3}
 
-# geometry names on the small-M body (dequant_smallm.cuh): B1's std and
-# mxu bodies and B6's small-M entry (ops/cuda/moe_dispatch.py)
-_SMALLM = frozenset({"dequant_gemv", "dequant_gemv_mxu",
+# geometry names on the small-M body (dequant_smallm.cuh): B1's std, mxu
+# and mxu8 bodies and B6's small-M entry (ops/cuda/moe_dispatch.py)
+_SMALLM = frozenset({"dequant_gemv", "dequant_gemv_mxu", "dequant_gemv_mxu8",
                      "moe_dispatch_smallm"})
 # geometry names on the Hopper GEMM body (dequant_wgmma.cuh): B2's two
-# bodies and B6's quantized tiles (ops/cuda/moe_dispatch.py); B6's dense
-# stack stays on dequant_mma.cuh as "moe_dispatch_dense"
+# bodies and B6's tiles entry (ops/cuda/moe_dispatch.py)
 _WGMMA = frozenset({"dequant_gemm", "dequant_gemm_i4", "moe_dispatch"})
 # output columns a block of the Hopper body computes (two warpgroups, two
 # 64-column tiles each)
@@ -113,6 +115,7 @@ _luts: Dict[Tuple[str, int], torch.Tensor] = {}
 _sms: Dict[int, int] = {}
 _occupancy: Dict[tuple, int] = {}
 _tickets: Dict[Tuple[str, int], torch.Tensor] = {}
+_workspaces: Dict[Tuple[str, int], torch.Tensor] = {}
 
 
 def plain_q_matmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
@@ -327,16 +330,16 @@ def _cw(name: str, n: int, m: int = 1) -> int:
     """32-bit words (4 columns each) a thread loads per packed row. The
     small-M body: 4 (16-byte loads) at M <= 16 and 2 above (its f32 sums
     grow with the n8 tiles of tokens) where the row allows them, else 1.
-    mxuflat: 4 where N % 16 == 0. fold and mxu8 (dequant_mma.cuh): 2 at
-    one m-tile (their second set of C fragments leaves no registers for
-    more). Else 1."""
+    mxuflat: 4 where N % 16 == 0. fold (dequant_mma.cuh): 2 at one m-tile
+    (its second set of C fragments leaves no registers for more). Else
+    1."""
     if name in _SMALLM:
         if m <= 16:
             return 4 if n % 16 == 0 else 1
         return 2 if n % 8 == 0 else 1
     if name == "dequant_gemv_mxuflat":
         return 4 if n % 16 == 0 else 1
-    if name in ("dequant_gemv_fold", "dequant_gemv_mxu8"):
+    if name == "dequant_gemv_fold":
         return 2 if m <= 16 and n % 8 == 0 else 1
     return 1
 
@@ -408,7 +411,7 @@ def _occupancy_query(name: str):
     if name in ("dequant_gemm", "dequant_gemm_i4"):
         q = _native.kernel("dequant_gemm", "bigdl_dequant_gemm_blocks_per_sm")
         return lambda m, kind, cw: q(m, kind)
-    if name in ("moe_dispatch", "moe_dispatch_dense"):
+    if name == "moe_dispatch":
         q = _native.kernel("moe_dispatch", "bigdl_moe_dispatch_blocks_per_sm")
         return lambda m, kind, cw: q(kind)
     if name in _VARIANT_BODY:
@@ -419,8 +422,7 @@ def _occupancy_query(name: str):
     if name == "moe_dispatch_smallm":
         return _native.kernel("moe_dispatch",
                               "bigdl_moe_dispatch_smallm_blocks_per_sm")
-    lib = "dequant_mxu8" if name == "dequant_gemv_mxu8" else name
-    return _native.kernel(lib, f"bigdl_{lib}_blocks_per_sm")
+    return _native.kernel(name, f"bigdl_{name}_blocks_per_sm")
 
 
 def _split_k(name: str, m: int, n: int, kp: int, kind: int, cw: int,
@@ -486,6 +488,20 @@ def ticket_buffer(device: torch.device, count: int) -> torch.Tensor:
     return buf
 
 
+def workspace_buffer(device: torch.device, count: int) -> torch.Tensor:
+    """f32, at least `count` of them, on `device`: the split-K partials of
+    B1's launches. Allocated once a device and grown on demand, so a call
+    allocates nothing; like the tickets, the buffer serves launches on one
+    stream at a time (each launch's partials are read before the next
+    launch on that stream writes them)."""
+    key = (device.type, device.index)
+    buf = _workspaces.get(key)
+    if buf is None or buf.numel() < count:
+        buf = torch.empty(count, dtype=torch.float32, device=device)
+        _workspaces[key] = buf
+    return buf
+
+
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -498,23 +514,17 @@ def _launch(name: str, x: torch.Tensor, w: QTensor) -> torch.Tensor:
     kind = _kind(w)
     cw = _cw(name, n, m)
     split, per = _split_k(name, m, n, kp, kind, cw, x2.device)
-    ws = (torch.empty((split, m, n), dtype=torch.float32, device=x2.device)
-          if split > 1 else None)
-    # the small-M body sums a K split in the same launch, one ticket a strip
-    tickets = None
-    if name in _SMALLM and split > 1:
-        tickets = ticket_buffer(
-            x2.device, -(-n // _block_cols(name, cw))).data_ptr()
+    # a K split's partials in the device's workspace; the small-M body sums
+    # them in the same launch, one ticket a strip
+    wsp = tickets = None
+    if split > 1:
+        wsp = workspace_buffer(x2.device, split * m * n).data_ptr()
+        if name in _SMALLM:
+            tickets = ticket_buffer(
+                x2.device, -(-n // _block_cols(name, cw))).data_ptr()
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
     stream = _stream(x2.device)
-    wsp = None if ws is None else ws.data_ptr()
-    if name == "dequant_gemv_mxu8":
-        xq, sx = quantize_x_q8(x2)
-        err = _native.kernel("dequant_mxu8")(
-            xq.data_ptr(), sx.data_ptr(), w.data.data_ptr(),
-            w.scale.data_ptr(), wsp, y.data_ptr(), m, kp, n, kind, split,
-            per, cw, stream)
-    elif name in _VARIANT_BODY:
+    if name in _VARIANT_BODY:
         err = _native.kernel("dequant_variants")(
             _VARIANT_BODY[name], x2.data_ptr(), w.data.data_ptr(),
             w.scale.data_ptr(), _lut_ptr(w, x2.device), wsp, tickets,

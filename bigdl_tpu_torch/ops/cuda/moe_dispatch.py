@@ -2,15 +2,16 @@
 
 Counterpart of ``bigdl_tpu/ops/pallas/moe_dispatch.py::ragged_expert_matmul``
 (its quantized and dense bf16 bodies). Source: ``csrc/moe_dispatch.cu``.
-A quantized stack's tiles run B2's Hopper body (``csrc/dequant_wgmma.cuh``,
-wgmma fed by TMA) with a per-tile weight address, 64 or 128 tokens a tile
-from its real rows; a dense stack takes the mma.sync body of
-``csrc/dequant_mma.cuh`` with bf16 weights. Decode tiles take a second
-entry on B1's small-M body (``csrc/dequant_smallm.cuh``): the caller
-passes ``max_tile_rows``, a bound on the real rows of any tile known on
-the host without reading the device (``moe_mlp_ragged``: the token-choice
-count ``N * k``, at most a tile); at most ``SMALLM_MAX_ROWS`` it takes the
-small-M entry over a quantized stack, else the tiles entry.
+Tiles run B2's Hopper body (``csrc/dequant_wgmma.cuh``, wgmma fed by TMA)
+with a per-tile weight address, 64 or 128 tokens a tile from its real
+rows; a dense bf16 stack's boxes reach wgmma as they are (its A operand
+from shared memory). Decode tiles take a second entry on B1's small-M body
+(``csrc/dequant_smallm.cuh``): the caller passes ``max_tile_rows``, a
+bound on the real rows of any tile known on the host without reading the
+device (``moe_mlp_ragged``: the token-choice count ``N * k``, at most a
+tile); at most ``SMALLM_MAX_ROWS`` it takes the small-M entry, over a
+quantized or a dense stack, else the tiles entry. Both entries count a
+dense stack's launches as ``ragged_expert_matmul_dense``.
 
 x [Np, K] is a token buffer sorted by expert and padded so that every
 ``TOKEN_TILE``-row tile holds the rows of one expert; tile i is multiplied
@@ -21,8 +22,8 @@ is bf16 [Np, N].
 
 ``tile_rows`` (int32 [Np / TOKEN_TILE]) tells the kernel how many leading
 rows of each tile are real; it multiplies 64 rows of a tile that holds at
-most 64 (the dense body: the 16-row m-tiles that hold real rows) and
-writes zeros past them. The caller guarantees that those rows of x are zeros,
+most 64 (the small-M entry: its staged 8, 16 or 32) and writes zeros past
+them. The caller guarantees that those rows of x are zeros,
 so the result is x's product all the same; the plain version computes
 every row.
 """
@@ -55,8 +56,9 @@ SMALLM_MAX_ROWS = 32
 
 # weight kind of a dense bf16 stack (KIND_BF16 in csrc/dequant_mma.cuh)
 _KIND_BF16 = 4
-# K rows of a dense stack's unit of work: K must be a multiple of this
-_DENSE_K_MULTIPLE = 32
+# K rows of a dense stack's unit of work (the small-M body loads whole
+# 16-row units): K must be a multiple of this
+_DENSE_K_MULTIPLE = 16
 
 
 def plain_ragged_expert_matmul(x: torch.Tensor,
@@ -124,17 +126,32 @@ def _prepare_dense(x: torch.Tensor, w: torch.Tensor,
 def ragged_entry(w: Union[QTensor, torch.Tensor],
                  max_tile_rows: Optional[int]) -> str:
     """The entry a launch takes, from the caller's bound on a tile's real
-    rows alone: ``smallm`` (B1's small-M body) for a quantized stack with
-    ``max_tile_rows <= SMALLM_MAX_ROWS``, else ``tiles`` (the 8-m-tile
-    body). No bound (None) keeps the tiles entry."""
+    rows alone: ``smallm`` (B1's small-M body) with ``max_tile_rows <=
+    SMALLM_MAX_ROWS``, else ``tiles`` (the Hopper body), for a quantized
+    and a dense stack alike. No bound (None) keeps the tiles entry."""
     if max_tile_rows is None:
         return "tiles"
     if max_tile_rows < 1:
         raise ValueError(f"ragged_expert_matmul: max_tile_rows must be at "
                          f"least 1, got {max_tile_rows}")
-    if isinstance(w, QTensor) and max_tile_rows <= SMALLM_MAX_ROWS:
-        return "smallm"
-    return "tiles"
+    return "smallm" if max_tile_rows <= SMALLM_MAX_ROWS else "tiles"
+
+
+def dense_cw(n: int) -> int:
+    """32-bit words (2 bf16 columns each) a thread of the small-M body
+    loads from each row of a dense stack: 2, one 16-byte load of 8
+    weights, where N % 8 == 0, else 1."""
+    return 2 if n % 8 == 0 else 1
+
+
+def dense_loads(n: int, addresses=()) -> str:
+    """How the Hopper body loads a dense stack's rows: ``"tma"`` when a
+    row is a multiple of 16 bytes (N % 8 == 0) and every address in
+    `addresses` (the stack's pointer and expert stride in bytes) is
+    16-byte aligned, else ``"cp.async"`` (what ``dqwg::dense_tma_ok`` in
+    csrc/dequant_wgmma.cuh asks)."""
+    return "tma" if n % 8 == 0 and all(a % 16 == 0 for a in addresses) \
+        else "cp.async"
 
 
 def _launch(x: torch.Tensor, w: Union[QTensor, torch.Tensor],
@@ -181,13 +198,17 @@ def _launch(x: torch.Tensor, w: Union[QTensor, torch.Tensor],
     y = torch.empty((np_, n), dtype=torch.bfloat16, device=x2.device)
     if ragged_entry(w, max_tile_rows) == "smallm":
         geo = "moe_dispatch_smallm"
-        cw = _cw(geo, n, max_tile_rows)
+        cw = _cw(geo, n, max_tile_rows) if quantized else dense_cw(n)
         split, per = split or _split_k(geo, max_tile_rows, n, kp, kind, cw,
                                        x2.device, tiles=ntiles)
-        align = min(16, 4 * cw)          # the weight words' vector loads
-        if (data.data_ptr() % align or data_es % align
-                or scale.data_ptr() % (2 * align) or scale_es % align
-                or (zero is not None and zero % (2 * align))):
+        # the weight words' vector loads (a dense row: 8 cw bytes)
+        align = min(16, 4 * cw) if quantized else 8 * cw
+        misaligned = data.data_ptr() % align or data_es % align
+        if quantized:
+            misaligned = (misaligned or scale.data_ptr() % (2 * align)
+                          or scale_es % align
+                          or (zero is not None and zero % (2 * align)))
+        if misaligned:
             raise ValueError(f"{name}: the expert planes are not aligned "
                              "for vector loads")
         rows = smallm_rows(max_tile_rows)
@@ -205,20 +226,22 @@ def _launch(x: torch.Tensor, w: Union[QTensor, torch.Tensor],
             np_, kp, n, block, kind, num_experts, data_es, scale_es, split,
             per, max_tile_rows, cw, stream)
     else:
-        # a quantized stack: the Hopper body, K split summed in the same
-        # launch; a dense stack: dequant_mma.cuh and its finalize kernel
-        geo = "moe_dispatch" if quantized else "moe_dispatch_dense"
+        # the Hopper body, its K split summed in the same launch
+        geo = "moe_dispatch"
         split, per = split or _split_k(geo, TOKEN_TILE, n, kp, kind, 1,
                                        x2.device, tiles=ntiles)
-        tma = tickets = None
         if quantized:
             planes = [data, scale] + ([] if w.zero is None else [w.zero])
             tma = plane_loads(n, w.qtype, [p.data_ptr() for p in planes]
                               + [data_es, 2 * scale_es])["codes"] == "tma"
+        else:
+            tma = dense_loads(n, [data.data_ptr(), data_es]) == "tma"
         shape = wgmma_workspace(split, np_, n)
-        ws = None if shape is None else torch.empty(
-            shape, dtype=torch.float32, device=x2.device)
-        if quantized and shape is not None:
+        # the workspace lives to the launch (the allocator may hand a freed
+        # block to y)
+        ws = tickets = None
+        if shape is not None:
+            ws = torch.empty(shape, dtype=torch.float32, device=x2.device)
             tickets = ticket_buffer(x2.device,
                                     ntiles * wgmma_strips(n)).data_ptr()
         err = _native.kernel("moe_dispatch")(
@@ -226,9 +249,9 @@ def _launch(x: torch.Tensor, w: Union[QTensor, torch.Tensor],
             tile_expert.data_ptr(), tile_rows.data_ptr(),
             None if ws is None else ws.data_ptr(), tickets, y.data_ptr(),
             np_, kp, n, block, kind, num_experts, data_es, scale_es,
-            split, per, int(bool(tma)), stream)
+            split, per, int(tma), stream)
     _native.check(name, err)
-    # the dense body counts its launches apart
+    # a dense stack counts its launches apart
     LAUNCHES[name if quantized else f"{name}_dense"] += 1
     return y
 

@@ -86,10 +86,18 @@ def q_linear(x: torch.Tensor, w: QTensor,
 def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None
            ) -> torch.Tensor:
     """Linear over a QTensor or a dense contraction-major [K, N] weight
-    (dense: f32 accumulation, output in x.dtype)."""
+    (dense: the weight in x.dtype, products summed in f32, output in
+    x.dtype). On the card a bf16 x and weight go to one product that sums
+    in f32 and rounds once (``jnp.dot(..., preferred_element_type=f32)``)
+    with no f32 copy of the weight; elsewhere both are widened to f32."""
     if isinstance(w, QTensor):
         return q_linear(x, w, bias)
-    y = torch.matmul(x.to(torch.float32), w.to(x.dtype).to(torch.float32))
+    if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        y = y.reshape(*x.shape[:-1], w.shape[-1])
+    else:
+        y = torch.matmul(x.to(torch.float32),
+                         w.to(x.dtype).to(torch.float32))
     y = y.to(x.dtype)
     if bias is not None:
         y = y + bias.to(y.dtype)

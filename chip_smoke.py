@@ -22,8 +22,10 @@ Phases, all of them on every run, each printing one JSON line:
    bound on a tile's real rows that the MoE layer passes (min(N * k,
    128)): its decode routings (2, 8 and 16 slots) run the small-M entry,
    its prefill routings (a skewed and a uniform 256-token chunk) the
-   Hopper body; its dense bf16 body (a bf16 Mixtral load) is timed at
-   gate/up under the skewed chunk and a decode routing, with
+   Hopper body; a dense bf16 stack (a bf16 Mixtral load) takes the same
+   two entries (the Hopper body's prefill tiles with bf16 boxes as the
+   wgmma A operand, the small-M body's decode tiles with 16-byte bf16
+   loads), timed at gate/up under both chunks and a decode routing, with
    ``torch._grouped_mm`` as its yardstick, and counts its launches apart.
    B4 is also checked at the generator's prefill buckets, Sq 1024 and
    2048 at pos 0 of a 2048-row cache. B5 must also equal B3 bit for bit on the same rows laid out
@@ -33,8 +35,10 @@ Phases, all of them on every run, each printing one JSON line:
    shapes, B5 bit-equal to B3 for each kind. B1's mxu, fold, mxuflat and
    mxu8 bodies and B2's i4 body run against their own plain versions,
    timed on Llama-2-7B's gate_up (4096 x 22016) at M 8 (i4: 128) over the
-   int4 layout (fold over the canonical sym_int4, nf4 and sym_int8, mxu8
-   over sym_int8 too), and checked at the other m-tile counts; mxu (M 1,
+   int4 layout (fold over the canonical sym_int4, nf4 and sym_int8; mxu8,
+   which quantizes x inside its one launch, at M 1, 8, 16 and 32 over the
+   int4 layout and sym_int8, and must launch one kernel a call), and
+   checked at the other m-tile counts; mxu (M 1,
    8, 16, 32, timed on gate_up) and i4 (M 33, 64, 100, 128; 33 and 100
    timed), the load path's defaults, are also checked on each of the
    other four Llama-2-7B linears.
@@ -109,8 +113,10 @@ Phases, all of them on every run, each printing one JSON line:
    CPU's best); TTFT, next-token ms, tokens/s and peak memory at bs 1.
 12d. hf_load_moe: after the Llama model is freed, a Mixtral-8x7B float
    checkpoint (full width, 1 layer) loaded at sym_int4 and at bf16: a
-   256-token prefill and a decode step each, B6's quantized tiles and its
-   dense body launching.
+   256-token prefill and a decode step each, then a decode forward of 8
+   sequences; B6 launches in the prefill (the tiles entry) and in the
+   8-sequence decode (the small-M entry) at both qtypes, counted as its
+   dense body at bf16.
 13. model_moe: the Llama model is freed, and full-width, full-depth
    Mixtral-8x7B (sym_int4 linears, random weights from seed 0) is built
    on the card.
@@ -176,7 +182,7 @@ KERNELS = {
         source="bigdl_tpu_torch/csrc/dequant_variants.cu",
         replaces="bigdl_tpu/ops/pallas/dequant_matmul.py:265"),
     "dequant_gemv_mxu8": dict(
-        source="bigdl_tpu_torch/csrc/dequant_mxu8.cu",
+        source="bigdl_tpu_torch/csrc/dequant_variants.cu",
         replaces="bigdl_tpu/ops/pallas/dequant_matmul.py:284"),
     "dequant_gemm_i4": dict(
         source="bigdl_tpu_torch/csrc/dequant_gemm.cu",
@@ -193,8 +199,8 @@ KERNELS = {
     "ragged_expert_matmul": dict(
         source="bigdl_tpu_torch/csrc/moe_dispatch.cu",
         replaces="bigdl_tpu/ops/pallas/moe_dispatch.py:90"),
-    # B6 over a dense bf16 expert stack (a bf16 Mixtral load): its own
-    # body and launch count
+    # B6 over a dense bf16 expert stack (a bf16 Mixtral load): the same two
+    # entries (dequant_wgmma.cuh, dequant_smallm.cuh), its own launch count
     "ragged_expert_matmul_dense": dict(
         source="bigdl_tpu_torch/csrc/moe_dispatch.cu",
         replaces="bigdl_tpu/ops/pallas/moe_dispatch.py:84"),
@@ -834,13 +840,16 @@ def phase_kernels(timer):
             emit({"phase": "kernels", **rec})
             del w
     # every ported qtype at a small, K-padded shape (a prefill routing and
-    # a decode one) and the dense bf16 body at a small shape, untimed; the
-    # dense body timed at Mixtral's gate/up shape under the skewed prefill
-    # routing and a decode routing
+    # a decode one) and dense bf16 stacks at small shapes, untimed; dense
+    # stacks at Mixtral's expert shapes under both prefill routings and a
+    # decode routing (gate/up timed)
     for qtype in ("sym_int4", "asym_int4", "sym_int8", "nf4", "fp4", "nf3",
-                  None):
-        w = (_stack_q(randn, 4, 1000, 512, qtype) if qtype else
-             randn(4, 1024, 512, scale=0.02).to(torch.bfloat16))
+                  None, (1008, 260)):
+        # a dense stack also at K % 64 != 0 with N % 8 != 0 (rows by
+        # cp.async on the Hopper body, 8-byte loads on the small-M body)
+        w = (_stack_q(randn, 4, 1000, 512, qtype) if isinstance(qtype, str)
+             else randn(4, *(qtype or (1024, 512)), scale=0.02)
+             .to(torch.bfloat16))
         for rname, tokens in (("random", 64), ("decode", 6)):
             routing = torch.stack([
                 torch.randperm(4, generator=gen, device=dev)[:2]
@@ -849,14 +858,16 @@ def phase_kernels(timer):
                                iters=0)
             records.append(rec)
             emit({"phase": "kernels", **rec})
-    w = randn(8, 4096, 14336, scale=0.02).to(torch.bfloat16)
-    for rname, routing in (("prefill", _prefill_routing(dev)),
-                           ("decode", _decode_routing(gen, dev))):
-        rec = _ragged_case(timer, randn, routing, rname, "gate_up", w,
-                           iters=10)
-        records.append(rec)
-        emit({"phase": "kernels", **rec})
-    del w
+    for lname, (k, n) in MIXTRAL_EXPERT_LINEARS.items():
+        w = randn(8, k, n, scale=0.02).to(torch.bfloat16)
+        for rname, routing in (("prefill", _prefill_routing(dev)),
+                               ("prefill_uniform", _uniform_routing(dev)),
+                               ("decode", _decode_routing(gen, dev))):
+            rec = _ragged_case(timer, randn, routing, rname, lname, w,
+                               iters=10 if lname == "gate_up" else 0)
+            records.append(rec)
+            emit({"phase": "kernels", **rec})
+        del w
 
     # the quantized-KV bodies of B3, B4 and B5 (fp8_e5m2, int8, int4): timed
     # at the main path's shapes (B3 and B5 at Llama-2-7B's heads and at
@@ -963,20 +974,27 @@ def _variant_cases(timer, randn):
         w = quantize(randn(k, n, scale=0.02), qtype)
         run(*fold, w, 8, k, 10, linear="gate_up_proj")
         if qtype == "sym_int8":
-            run(*bodies[2], w, 8, k, 10, linear="gate_up_proj")
+            # mxu8 (the small-M body) at 1, 2 and 4 n8 tiles of tokens,
+            # one kernel a call
+            for m in (1, 8, 16, 32):
+                run(*bodies[2], w, m, k, 10, linear="gate_up_proj")
+            _one_kernel_a_call("dequant_gemv_mxu8", bodies[2][1], w, randn)
         if qtype != "sym_int4":
             continue
         wm = to_mxu_layout(w)
         for body in bodies:
             run(*body, wm, 8, k, 10, linear="gate_up_proj")
-        # mxu (the small-M body) timed at its other n8-tile counts
+        # mxu and mxu8 (the small-M body) timed at their other n8-tile
+        # counts
         for m in (1, 16, 32):
-            run(*bodies[0], wm, m, k, 10, linear="gate_up_proj")
+            for body in (bodies[0], bodies[2]):
+                run(*body, wm, m, k, 10, linear="gate_up_proj")
+        _one_kernel_a_call("dequant_gemv_mxu8", bodies[2][1], wm, randn)
         run("dequant_gemm_i4", i4, dm.plain_q_matmul, wm, 128, k, 10,
             linear="gate_up_proj")
         # the other m-tile counts and words a thread, untimed
         for m in (1, 17, 32):
-            for body in bodies[1:] if m != 17 else bodies:
+            for body in bodies[1:2] if m != 17 else bodies:
                 run(*body, wm, m, k, 0, linear="gate_up_proj")
             run(*fold, w, m, k, 0, linear="gate_up_proj")
         for m in (33, 40, 64, 100):
@@ -998,6 +1016,38 @@ def _variant_cases(timer, randn):
                         run(*body, wm, m, k, 0)
                 run("dequant_gemm_i4", i4, dm.plain_q_matmul, wm, 96, k, 0)
     return records
+
+
+def _one_kernel_a_call(name, fn, w, randn, calls=5, windows=3):
+    """The device kernels `calls` calls of fn (a B1 body at M 8 on w)
+    launch, from torch.profiler after a warm call: exactly one a call (no
+    quantize launches, no split-K sum). torch.profiler loses device
+    records now and then (see _profile_decode), so a window with fewer is
+    measured again, at most `windows` in all; one with more fails."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = randn(8, w.k).to(torch.bfloat16)
+    fn(x, w)
+    torch.cuda.synchronize()
+    for window in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn(x, w)
+            torch.cuda.synchronize()
+        kernels = {e.key: e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA}
+        total = sum(kernels.values())
+        require(total <= calls, f"{name}: {total} kernels for {calls} "
+                f"calls: {kernels}")
+        if total == calls:
+            emit({"phase": "kernels", "check": "kernels_per_call",
+                  "kernel": name, "qtype": w.qtype, "layout": w.layout,
+                  "M": 8, "calls": calls, "device_kernels": kernels,
+                  "windows": window + 1})
+            return
+    require(False, f"{name}: fewer kernels than calls in each of "
+            f"{windows} windows: {kernels}")
 
 
 def _cut_params(params, n_layers):
@@ -1154,11 +1204,9 @@ def _run_requests(eng, requests):
 
 
 def _kernel_group(name: str) -> str:
-    for key, group in (("ragged_mma", "ragged_expert_matmul (B6)"),
-                       ("smallm_ragged", "ragged_expert_matmul (B6)"),
+    for key, group in (("smallm_ragged", "ragged_expert_matmul (B6)"),
                        ("wgmma_ragged", "ragged_expert_matmul (B6)"),
                        ("wgmma_gemm", "dequant_gemm (B2)"),
-                       ("q8_mma", "dequant_gemv_mxu8 (B1)"),
                        ("dequant_mma", "dequant_gemv (B1)"),
                        ("smallm_gemv", "dequant_gemv (B1)"),
                        ("finalize_kernel", "dequant split-K sum"),
@@ -2324,9 +2372,11 @@ def phase_hf_load(cfg, n_layers=4):
 def phase_hf_load_moe(cfg, n_layers=1):
     """A Mixtral-8x7B float checkpoint at full width and `n_layers`
     layer(s) through ``from_pretrained`` at sym_int4 and at bf16 (dense
-    expert stacks): a 256-token prefill and one decode step on each, with
-    finite logits of the expected shape; B6's quantized tiles must launch
-    at sym_int4 and its dense body at bf16."""
+    expert stacks): a 256-token prefill and one decode step on each, then
+    8 sequences of 16 tokens and one decode forward of the 8, with finite
+    logits of the expected shapes; B6 (its dense body at bf16) must launch
+    in the 256-token prefill (the tiles entry: 512 token-choices) and in
+    the 8-sequence decode (the small-M entry: 16)."""
     import shutil
     import tempfile
 
@@ -2341,8 +2391,11 @@ def phase_hf_load_moe(cfg, n_layers=1):
                  "eos_token_id": 2}
     path = tempfile.mkdtemp(prefix="bigdl_tpu_torch_hf_moe_")
     counts = {}
-    prompt = torch.tensor(np.random.default_rng(4).integers(
-        0, cfg.vocab_size, (1, 256)), device="cuda")
+    rng = np.random.default_rng(4)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size, (1, 256)),
+                          device="cuda")
+    prompt8 = torch.tensor(rng.integers(0, cfg.vocab_size, (8, 16)),
+                           device="cuda")
     try:
         t0 = time.perf_counter()
         total = _write_hf_checkpoint(path, hf_config,
@@ -2359,14 +2412,27 @@ def phase_hf_load_moe(cfg, n_layers=1):
                 cache = mixtral.new_cache(mcfg, 1, 2048, device="cuda")
                 lg1, cache = mixtral.forward(model.params, mcfg, prompt,
                                              cache)
+                torch.cuda.synchronize()
+                b6_prefill = launch_counts()[body]
                 lg2, cache = mixtral.forward(model.params, mcfg,
                                              prompt[:, -1:], cache)
-            torch.cuda.synchronize()
+                # 8 sequences of 16 tokens, then one decode forward: its
+                # 16 token-choices take B6's small-M entry
+                cache8 = mixtral.new_cache(mcfg, 8, 2048, device="cuda")
+                lg3, cache8 = mixtral.forward(model.params, mcfg, prompt8,
+                                              cache8)
+                torch.cuda.synchronize()
+                before = launch_counts()[body]
+                lg4, cache8 = mixtral.forward(model.params, mcfg,
+                                              prompt8[:, -1:], cache8)
+                torch.cuda.synchronize()
+                b6_decode8 = launch_counts()[body] - before
             card = {k: v for k, v in launch_counts().items() if v}
             for k, v in card.items():
                 counts[k] = counts.get(k, 0) + v
-            fin = bool(torch.isfinite(lg1).all() and torch.isfinite(lg2).all())
-            shapes = [list(lg1.shape), list(lg2.shape)]
+            logits = (lg1, lg2, lg3, lg4)
+            fin = all(bool(torch.isfinite(lg).all()) for lg in logits)
+            shapes = [list(lg.shape) for lg in logits]
             stacks = {k: (getattr(v, "qtype", None) or str(v.dtype),
                           list(v.data.shape if hasattr(v, "qtype")
                                else v.shape))
@@ -2376,13 +2442,19 @@ def phase_hf_load_moe(cfg, n_layers=1):
                   "layers": n_layers, "checkpoint_bytes": total,
                   "write_s": write_s, "load_s": load_s, "peak_bytes": peak,
                   "final_param_bytes": final, "expert_stacks": stacks,
-                  "launches": card, "logits_shapes": shapes, "finite": fin})
-            require(fin and shapes == [[1, 256, cfg.vocab_size],
-                                       [1, 1, cfg.vocab_size]],
+                  "launches": card, "b6_prefill_launches": b6_prefill,
+                  "b6_decode8_launches": b6_decode8,
+                  "logits_shapes": shapes, "finite": fin})
+            v = cfg.vocab_size
+            require(fin and shapes == [[1, 256, v], [1, 1, v], [8, 16, v],
+                                       [8, 1, v]],
                     f"hf_load_moe {qtype}: logits {shapes}, finite {fin}")
-            require(card.get(body, 0) > 0,
-                    f"hf_load_moe {qtype}: {body} never launched: {card}")
-            del model, cache
+            require(b6_prefill > 0 and b6_decode8 > 0,
+                    f"hf_load_moe {qtype}: {body} launched {b6_prefill} "
+                    f"times in the prefill (the tiles entry) and "
+                    f"{b6_decode8} in the 8-sequence decode (the small-M "
+                    f"entry): {card}")
+            del model, cache, cache8
     finally:
         shutil.rmtree(path, ignore_errors=True)
     return counts
@@ -2607,6 +2679,15 @@ def summary(records, counts):
                 extra[routing] = {k: other[k] for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "entry", "max_abs_err", "ps_per_weight")}
+        if name == "dequant_gemv_mxu8":
+            # its other token counts and sym_int8, on gate_up
+            for r in mine:
+                if "ms" in r and r.get("linear") == "gate_up_proj" and (
+                        r["M"] != 8 or r["layout"] != "int4"):
+                    extra[f"{r['layout']}_{r['qtype']}_M{r['M']}"] = {
+                        k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms",
+                                          "max_abs_err")}
         if name.startswith(("decode_attention", "paged_decode_attention",
                             "prefill_attention")):
             # Mixtral-8x7B's GQA (32 query heads on 8 kv heads)

@@ -351,17 +351,56 @@ def test_b6_tiles_take_the_hopper_body(lib, k, n, qtype):
 
 
 def test_b6_dense_stack_keeps_its_body(lib):
-    """A dense bf16 stack takes the tiles entry with kind bf16, no tickets
-    and no TMA (dequant_mma.cuh's body and its finalize kernel)."""
-    w = torch.zeros((2, 256, 512), dtype=torch.bfloat16)
-    x = torch.zeros((cmoe.TOKEN_TILE, 256), dtype=torch.bfloat16)
-    te = torch.zeros((1,), dtype=torch.int32)
-    tr = torch.full((1,), 7, dtype=torch.int32)
-    cmoe._launch(x, w, te, tr, max_tile_rows=128)
-    (libname, sym, args), = lib.launches()
-    assert (libname, sym) == ("moe_dispatch", None)
-    assert args[14] == cmoe._KIND_BF16 and args[8] is None
-    assert args[-2] == 0
+    """A dense bf16 stack's tiles entry is the Hopper body's: kind bf16,
+    block 16, its byte expert stride, the split of the body's occupancy
+    query for that kind, tickets for every (tile, strip) and a workspace
+    of the whole buffer when K is split, and TMA for 16-byte rows
+    (cp.async for N % 8 != 0); one native call, counted as the dense
+    body's launch."""
+    e, tiles = 2, 2
+    for k, n, tma in ((4096, 512, 1), (256, 260, 0)):
+        lib.calls.clear()
+        dm._occupancy.clear()
+        w = torch.zeros((e, k, n), dtype=torch.bfloat16)
+        x = torch.zeros((tiles * cmoe.TOKEN_TILE, k), dtype=torch.bfloat16)
+        te = torch.tensor([0, 1], dtype=torch.int32)
+        tr = torch.tensor([128, 7], dtype=torch.int32)
+        before = dict(LAUNCHES)
+        y = cmoe._launch(x, w, te, tr, max_tile_rows=128)
+        assert y.shape == (tiles * 128, n) and y.dtype == torch.bfloat16
+        assert LAUNCHES["ragged_expert_matmul_dense"] == \
+            before["ragged_expert_matmul_dense"] + 1
+        assert LAUNCHES["ragged_expert_matmul"] == \
+            before["ragged_expert_matmul"]
+        (libname, sym, args), = lib.launches()
+        assert (libname, sym) == ("moe_dispatch", None)
+        split, per = dm._split_k("moe_dispatch", 128, n, k, cmoe._KIND_BF16,
+                                 1, torch.device("cpu"), tiles=tiles)
+        assert args[10:21] == (tiles * 128, k, n, 16, cmoe._KIND_BF16, e,
+                               k * n * 2, 0, split, per, tma)
+        q = [c for c in lib.calls
+             if c[1] == "bigdl_moe_dispatch_blocks_per_sm"]
+        assert q and q[0][2] == (cmoe._KIND_BF16,)
+        if split > 1:
+            buf = dm._tickets[("cpu", None)]
+            assert args[8] == buf.data_ptr()
+            assert buf.numel() >= tiles * dm.wgmma_strips(n)
+            assert args[7] is not None
+        else:
+            assert args[7] is None and args[8] is None
+    # K 4096 over 2 x 2 strips splits (one wave holds it), K 256 does not
+    assert dm._split_k("moe_dispatch", 128, 512, 4096, cmoe._KIND_BF16, 1,
+                       torch.device("cpu"), tiles=2)[0] > 1
+
+
+@pytest.mark.parametrize("n,addresses,way", [
+    (14336, [0, 4096 * 14336 * 2], "tma"), (4096, [256, 1024], "tma"),
+    (260, [0, 512], "cp.async"), (4100, [0, 256], "cp.async"),
+    (4096, [8, 256], "cp.async"), (4096, [0, 4104], "cp.async")])
+def test_dense_loads_need_16_byte_rows(n, addresses, way):
+    """A dense stack's rows go by TMA when a row is a multiple of 16 bytes
+    and the stack and its expert stride are 16-byte aligned."""
+    assert cmoe.dense_loads(n, addresses) == way
 
 
 def test_b6_at_b2_split_is_b2_geometry(monkeypatch, lib):

@@ -124,6 +124,60 @@ def test_std_and_mxu_take_the_small_m_body(lib, body, m, k, n):
         assert tickets is None and args[5] is None   # no workspace
 
 
+@pytest.mark.parametrize("qtype,layout", [("sym_int4", "int4"),
+                                          ("sym_int8", "canonical")])
+@pytest.mark.parametrize("m", [1, 8, 9, 17, 32])
+@pytest.mark.parametrize("k,n", [(4096, 22016), (1000, 512), (640, 260)])
+def test_mxu8_is_one_small_m_launch(lib, monkeypatch, qtype, layout, m, k,
+                                    n):
+    """mxu8 is one native call of the variants library's body 3 with the
+    bf16 x as it is (the kernel quantizes it: no ``quantize_x_q8`` off the
+    CPU), the weight kind (int4 layout or sym_int8), the small-M words and
+    split, and, when K is split, the device's workspace and tickets."""
+    def no_q8(x2):
+        raise AssertionError("quantize_x_q8 ran for a kernel launch")
+    monkeypatch.setattr(dm, "quantize_x_q8", no_q8)
+    monkeypatch.setattr(dm, "_workspaces", {})
+    w = _weight(k, n, layout, qtype)
+    name = dm._GEMV["mxu8"]
+    before = LAUNCHES[name]
+    # (the stood-in _prepare does not pad K to the weight's Kp)
+    x = torch.nn.functional.pad(torch.randn(m, k), (0, w.kp - k))
+    y = dm._launch(name, x, w)
+    assert y.shape == (m, n) and y.dtype == torch.bfloat16
+    assert LAUNCHES[name] == before + 1
+    (libname, sym, args), = lib.launches()
+    assert (libname, sym, args[0]) == ("dequant_variants", None, 3)
+    kp = w.kp
+    kind = dm._KIND_I4 if layout == "int4" else dm._KIND_SYM8
+    cw = dm._cw(name, n, m)
+    assert cw == (4 if m <= 16 and n % 16 == 0 else
+                  2 if m > 16 and n % 8 == 0 else 1)
+    split, per = dm._split_k(name, m, n, kp, kind, cw, torch.device("cpu"))
+    assert args[8:] == (m, kp, n, 32, kind, split, per, cw, 0)
+    q = [c for c in lib.calls
+         if c[1] == "bigdl_dequant_variant_blocks_per_sm"]
+    assert q and q[0][2] == (3, m, kind, cw)
+    if split > 1:
+        assert args[5] == dm._workspaces[("cpu", None)].data_ptr()
+        assert dm._workspaces[("cpu", None)].numel() >= split * m * n
+        assert args[6] == dm._tickets[("cpu", None)].data_ptr()
+    else:
+        assert args[5] is None and args[6] is None
+    # x reaches the kernel as bf16, unquantized
+    assert args[1] != 0
+
+
+def test_workspace_buffer_is_kept_and_grown(monkeypatch):
+    monkeypatch.setattr(dm, "_workspaces", {})
+    cpu = torch.device("cpu")
+    a = dm.workspace_buffer(cpu, 100)
+    assert a.dtype == torch.float32 and a.numel() >= 100
+    assert dm.workspace_buffer(cpu, 50) is a
+    b = dm.workspace_buffer(cpu, 1000)
+    assert b.numel() >= 1000 and dm.workspace_buffer(cpu, 10) is b
+
+
 def test_small_m_occupancy_is_asked_per_row_tier(lib):
     """The occupancy query names the small-M variant: rows 8, 16 or 32
     (one query each), cw and the weight kind."""
@@ -177,10 +231,12 @@ def test_ticket_buffer_covers_the_strip_count(monkeypatch):
                                         (32, "smallm"), (33, "tiles"),
                                         (128, "tiles"), (None, "tiles")])
 def test_b6_entry_from_the_row_bound(rows, entry):
+    """A quantized and a dense bf16 stack take the same entry: the small-M
+    body at <= 32 rows, the Hopper body above."""
     w = _stack(2, 64, 32)
     assert cmoe.ragged_entry(w, rows) == entry
     dense = torch.zeros((2, 64, 32), dtype=torch.bfloat16)
-    assert cmoe.ragged_entry(dense, rows) == "tiles"
+    assert cmoe.ragged_entry(dense, rows) == entry
 
 
 def test_b6_entry_refuses_an_empty_bound():
@@ -220,7 +276,74 @@ def test_b6_launch_picks_its_entry_from_the_bound_alone(lib, rows):
         assert args[7] is None and args[8] is None
 
 
-@pytest.mark.parametrize("n_tok,k", [(1, 2), (8, 2), (16, 2), (64, 2),
+@pytest.mark.parametrize("rows", [2, 8, 16, 17, 32])
+@pytest.mark.parametrize("k,n", [(4096, 14336), (14336, 4096), (1008, 260)])
+def test_b6_dense_decode_takes_the_small_m_entry(lib, rows, k, n):
+    """A dense bf16 stack at <= 32 rows: the small-M entry with kind bf16,
+    block 16, the stack's byte stride (no scale planes), 16-byte row loads
+    (cw 2) where N % 8 == 0, else 8-byte, the split of the entry's
+    occupancy query for that kind, and tickets for every (tile, strip) with
+    a workspace of the staged rows when K is split; counted as the dense
+    body's launch."""
+    e, tiles = 4, 3
+    w = torch.zeros((e, k, n), dtype=torch.bfloat16)
+    x = torch.zeros((tiles * cmoe.TOKEN_TILE, k), dtype=torch.bfloat16)
+    te = torch.tensor([0, 2, 3], dtype=torch.int32)
+    tr = torch.tensor([rows, 1, 0], dtype=torch.int32)
+    before = dict(LAUNCHES)
+    y = cmoe._launch(x, w, te, tr, max_tile_rows=rows)
+    assert y.shape == (tiles * cmoe.TOKEN_TILE, n)
+    assert LAUNCHES["ragged_expert_matmul_dense"] == \
+        before["ragged_expert_matmul_dense"] + 1
+    (libname, sym, args), = lib.launches()
+    assert (libname, sym) == ("moe_dispatch",
+                              "bigdl_ragged_expert_matmul_smallm")
+    cw = 2 if n % 8 == 0 else 1
+    assert cmoe.dense_cw(n) == cw
+    split, per = dm._split_k("moe_dispatch_smallm", rows, n, k,
+                             cmoe._KIND_BF16, cw, torch.device("cpu"),
+                             tiles=tiles)
+    assert args[10:] == (tiles * 128, k, n, 16, cmoe._KIND_BF16, e,
+                         k * n * 2, 0, split, per, rows, cw, 0)
+    assert args[1] == args[2] == w.data_ptr() and args[3] is None
+    q = [c for c in lib.calls
+         if c[1] == "bigdl_moe_dispatch_smallm_blocks_per_sm"]
+    assert q and q[0][2] == (rows, cmoe._KIND_BF16, cw)
+    if split > 1:
+        assert args[7] is not None
+        buf = dm._tickets[("cpu", None)]
+        assert args[8] == buf.data_ptr()
+        assert buf.numel() >= tiles * -(-n // (32 * cw))
+    else:
+        assert args[7] is None and args[8] is None
+
+
+def test_b6_dense_refuses_a_k_the_body_cannot_load():
+    """A dense stack's K must be a whole number of the small-M body's
+    16-row units (the JAX kernel's own dense tiles take K % 32)."""
+    w = torch.zeros((2, 1000, 64), dtype=torch.bfloat16)
+    x = torch.zeros((128, 1000), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="K % 16"):
+        cmoe._prepare_dense(x, w.to("meta"), "ragged_expert_matmul")
+
+
+@pytest.mark.parametrize("offset", [0, 1, 4, 8])
+def test_b6_dense_x_reaches_the_kernel_16_byte_aligned(offset):
+    """Both dense entries stage x with 16-byte loads (and their C entries
+    refuse a misaligned x): a contiguous view at any offset arrives
+    aligned, with its values."""
+    k, n = 64, 32
+    w = torch.zeros((2, k, n), dtype=torch.bfloat16)
+    flat = torch.arange(128 * k + offset, dtype=torch.float32).to(
+        torch.bfloat16)
+    x = flat[offset:].view(128, k)
+    assert x.is_contiguous()
+    got = cmoe._prepare_dense(x, w, "ragged_expert_matmul")
+    assert got.data_ptr() % 16 == 0
+    assert torch.equal(got, x)
+
+
+@pytest.mark.parametrize("n_tok,k",[(1, 2), (8, 2), (16, 2), (64, 2),
                                      (100, 2)])
 def test_moe_mlp_ragged_passes_the_static_row_bound(monkeypatch, n_tok, k):
     """moe_mlp_ragged bounds a tile's real rows by the token-choice count

@@ -1,6 +1,7 @@
 """Time the Hopper dequant GEMM body of the PyTorch/CUDA port
 (``bigdl_tpu_torch/csrc/dequant_wgmma.cuh``) on one NVIDIA GPU: B2's std
-and i4 prefill GEMMs and B6's prefill tiles.
+and i4 prefill GEMMs and B6's prefill tiles, over quantized and dense bf16
+expert stacks.
 
     python3 tools/bench_gemm.py [--parent DIR]
 
@@ -12,7 +13,9 @@ Prints one JSON object a line:
   weight takes (ps);
 - B6 on a 256-token top-2 prefill chunk of Mixtral-8x7B (the smoke's
   skewed routing, and a uniform one: 64 rows an expert) at both expert
-  shapes, with the bound on a tile's real rows the MoE layer passes (128);
+  shapes, with the bound on a tile's real rows the MoE layer passes (128),
+  over sym_int4 stacks and dense bf16 ones (``torch._grouped_mm`` on the
+  dense stack timed beside it);
 - this tree only: B2 std at M 64 and 128 at each K split from 1 to 8 on
   every linear (beside the split the wrapper picks), B6 at splits 1 to 3,
   the host time of the tensor-map encode a launch does, and B2 / B6 on
@@ -145,8 +148,13 @@ def _times(root: str, tag: str, sweep: bool, defines=()) -> None:
     experts = cs.MIXTRAL_EXPERT_LINEARS
     if defines:
         experts = {"gate_up": experts["gate_up"]}
-    for lname, (k, n) in experts.items():
-        w = cs._stack_q(randn, 8, k, n, "sym_int4")
+    for (lname, (k, n)), qtype in ((e, q) for e in experts.items()
+                                   for q in ("sym_int4", "bf16")):
+        dense = qtype == "bf16"
+        w = (randn(8, k, n, scale=0.02).to(torch.bfloat16) if dense
+             else cs._stack_q(randn, 8, k, n, qtype))
+        wbytes = 8 * k * n * 2 if dense else w.nbytes
+        kname = "B6 dense prefill" if dense else "B6 prefill"
         for rname, routing in (("skewed", cs._prefill_routing(dev)),
                                ("uniform", _uniform_routing(dev))):
             r = ragged_routing(routing, 8)
@@ -158,14 +166,19 @@ def _times(root: str, tag: str, sweep: bool, defines=()) -> None:
             tiles = sum(1 for c in rows if c)
             nk = routing.numel()
             bound = cs.bound_ms(nk * k * 2 + r.np_ * n * 2
-                                + used * w.nbytes // 8, 2.0 * nk * k * n)[0]
+                                + used * wbytes // 8, 2.0 * nk * k * n)[0]
             ms = timer.ms(lambda: cmoe.ragged_expert_matmul(
                 x, w, r.tile_expert, r.tile_rows, max_tile_rows=128))
-            emit({"tree": tag, "kernel": "B6 prefill", "linear": lname,
-                  "routing": rname, "tile_rows": rows, "ms": ms,
-                  "ps_per_weight": ms * 1e9 / (tiles * k * n),
-                  "bound_ms": bound})
-            if sweep:
+            rec = {"tree": tag, "kernel": kname, "linear": lname,
+                   "routing": rname, "tile_rows": rows, "ms": ms,
+                   "ps_per_weight": ms * 1e9 / (tiles * k * n),
+                   "bound_ms": bound}
+            if dense and not defines:
+                lib_name, lib = cs._grouped_library(x, r, 8)
+                rec[lib_name.replace(" ", "_") + "_ms"] = timer.ms(
+                    lambda: lib(w))
+            emit(rec)
+            if sweep and not dense:
                 chunks = -(-k // 64)
                 for split in range(1, 4):
                     per = -(-chunks // split)

@@ -1,5 +1,5 @@
 """Time the small-M dequant body of the PyTorch/CUDA port on one NVIDIA
-GPU: B1's std and mxu decode GEMVs and B6's decode entry, and the
+GPU: B1's std, mxu and mxu8 decode GEMVs and B6's decode entry, and the
 streaming rate of the body's weight loads alone.
 
     python3 tools/bench_smallm.py [--parent DIR]
@@ -8,12 +8,15 @@ Prints one JSON object a line:
 - the card (``nvidia-smi`` name and power limit);
 - B1 std (canonical sym_int4) and mxu (int4 layout) at M 1, 8, 16 and 32
   on the five Llama-2-7B linears, each the median of 10 cold-L2 launches
-  (``chip_smoke.Timer``) beside its byte bound;
-- gate_up at M 8 at each K split from 1 to 8 (the wrapper picks one);
+  (``chip_smoke.Timer``) beside its byte bound; mxu8 at the same M over the
+  int4 layout and sym_int8 on gate_up;
+- gate_up at M 8 at each K split from 1 to 8 (the wrapper picks one),
+  std, mxu and mxu8;
 - B6 on an 8-slot top-2 decode routing at Mixtral-8x7B's expert shapes,
   with the bound on a tile's real rows that the MoE layer passes
   (``min(N * k, 128)`` = 16) and with ``N`` = 8 (top-k experts are
-  distinct, so no expert holds more than N rows);
+  distinct, so no expert holds more than N rows), over sym_int4 stacks and
+  (at 16) dense bf16 ones;
 - the probe (``tools/smallm_probe.cu``): the body's loads over gate_up's
   codes, and over eight times as many, with no arithmetic, at each split.
 
@@ -51,7 +54,10 @@ def _times(root: str, tag: str, sweep: bool) -> None:
     from bigdl_tpu_torch.ops.moe_dispatch import ragged_routing
     from bigdl_tpu_torch.ops.quant import quantize, to_mxu_layout
 
-    _native.build_all(("dequant_gemv", "dequant_variants", "moe_dispatch"))
+    # (a tree whose mxu8 body has a library of its own builds it too)
+    _native.build_all([n for n in ("dequant_gemv", "dequant_variants",
+                                   "dequant_mxu8", "moe_dispatch")
+                       if n in _native.SOURCES])
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
@@ -76,7 +82,7 @@ def _times(root: str, tag: str, sweep: bool) -> None:
             x = randn(8, k).to(torch.bfloat16)
             chunks = -(-k // 64)
             auto = dm._split_k
-            for body, ww in (("std", w), ("mxu", wm)):
+            for body, ww in (("std", w), ("mxu", wm), ("mxu8", wm)):
                 for split in range(1, 9):
                     per = -(-chunks // split)
                     dm._split_k = lambda *a, per=per, **kw: (
@@ -88,6 +94,19 @@ def _times(root: str, tag: str, sweep: bool) -> None:
                     emit({"tree": tag, "kernel": f"B1 {body}",
                           "linear": lname, "M": 8, "split": split,
                           "ms": ms})
+        if lname == "gate_up_proj":
+            w8 = quantize(randn(k, n, scale=0.02), "sym_int8")
+            for ww in (wm, w8):
+                for m in LINEAR_MS:
+                    x = randn(m, k).to(torch.bfloat16)
+                    emit({"tree": tag, "kernel": "B1 mxu8", "linear": lname,
+                          "qtype": ww.qtype, "layout": ww.layout, "M": m,
+                          "ms": timer.ms(
+                              lambda: dm.dequant_gemv(x, ww, "mxu8")),
+                          "bound_ms": cs.bound_ms(
+                              m * k * 2 + ww.nbytes + m * n * 2,
+                              2.0 * m * k * n)[0]})
+            del w8
         del w, wm
     rows_kw = "max_tile_rows" in cmoe.ragged_expert_matmul.__code__.co_varnames
     for lname, (k, n) in cs.MIXTRAL_EXPERT_LINEARS.items():
@@ -107,6 +126,18 @@ def _times(root: str, tag: str, sweep: bool) -> None:
                       x, w, r.tile_expert, r.tile_rows, **kw)),
                   "bound_ms": bound})
         del w
+        # the same routing over a dense bf16 stack (a bf16 Mixtral load)
+        wd = randn(8, k, n, scale=0.02).to(torch.bfloat16)
+        kw = {"max_tile_rows": 16} if rows_kw else {}
+        emit({"tree": tag, "kernel": "B6 dense decode", "linear": lname,
+              "max_tile_rows": kw.get("max_tile_rows"),
+              "entry": (cmoe.ragged_entry(wd, 16) if rows_kw else "tiles"),
+              "ms": timer.ms(lambda: cmoe.ragged_expert_matmul(
+                  x, wd, r.tile_expert, r.tile_rows, **kw)),
+              "bound_ms": cs.bound_ms(
+                  16 * k * 2 + r.np_ * n * 2 + used * k * n * 2,
+                  2.0 * 16 * k * n)[0]})
+        del wd
 
 
 def _probe() -> None:
