@@ -1,15 +1,17 @@
 // The small-M dequant matmul: y[M, N] = x[M, Kp] . W[Kp, N] over
 // block-quantized or dense bf16 W for M <= 32, on mma.sync (m16n8k16, bf16
 // in, f32 accumulate; the Q8 policy m16n8k32, s8 in, s32 accumulate). It is
-// the body of B1's std, mxu and mxu8 decode GEMVs (dequant_gemv.cu,
-// dequant_variants.cu bodies 0 and 3) and of B6's decode tiles over a
+// the body of every B1 decode GEMV (std in dequant_gemv.cu; mxu, fold,
+// mxuflat and mxu8 in dequant_variants.cu) and of B6's decode tiles over a
 // quantized or a dense bf16 expert stack (moe_dispatch.cu, the small-M
-// entry).
+// entry). Its weight words and their dequantization (namespace dqmma: Words,
+// load_chunk, dequant_col) also feed the Hopper body of B2 and B6's prefill
+// tiles (dequant_wgmma.cuh).
 //
 // Replaces bigdl_tpu/ops/pallas/dequant_matmul.py::_q_gemv_pallas (L473:
-// `_gemv_kernel` L144, `_gemv_kernel_mxu` L234, `_gemv_kernel_mxu8` L284)
-// and the decode tiles of
-// bigdl_tpu/ops/pallas/moe_dispatch.py::ragged_expert_matmul (L90,
+// `_gemv_kernel` L144, `_gemv_kernel_fold` L172, `_gemv_kernel_mxu` L234,
+// `_gemv_kernel_mxuflat` L265, `_gemv_kernel_mxu8` L284) and the decode
+// tiles of bigdl_tpu/ops/pallas/moe_dispatch.py::ragged_expert_matmul (L90,
 // `_ragged_kernel_q` L66, `_ragged_kernel_dense` L84). It computes what they
 // compute and does not carry the Pallas blocks over.
 //
@@ -21,20 +23,19 @@
 // Design.
 // - A and B are swapped. The dequantized weights are the mma A operand, 16
 //   output columns a tile; x is the B operand, 8 tokens an n8 tile,
-//   ceil(M / 8) tiles. No tile row is padding at M <= 8, and the registers
-//   the padding took in dequant_mma.cuh (x as A in m16 tiles) carry 16-byte
-//   weight loads instead.
-// - The weight words load as in dequant_mma.cuh (Words, load_chunk: lane
-//   (g, t) loads packed rows unit_row(t, i) of columns ncol .. ncol+4CW-1)
-//   and dequantize with dequant_col. The B fragment of two of the lane's
-//   columns is the A fragment of one 16-column tile (rows g and g + 8), so
+//   ceil(M / 8) tiles. No tile row is padding at M <= 8 (x as A in m16
+//   tiles pads half of each), and the registers that padding would take
+//   carry 16-byte weight loads instead.
+// - Lane (g, t) loads packed rows unit_row(t, i) of columns ncol ..
+//   ncol+4CW-1 straight from device memory (Words, load_chunk) and
+//   dequantizes them with dequant_col. The bf16 pairs of two of the lane's
+//   columns are the A fragment of one 16-column tile (rows g and g + 8), so
 //   the words feed the product as they are; the store undoes the column
 //   permutation. The C rows a lane holds are the columns whose codes it
-//   loaded, so FOLD (mxu) scales each quant block's f32 sum with the scales
-//   it loaded beside the codes: one scale load, one set of C fragments
-//   (the block's sum lives for two mma). A dense bf16 stack's rows pair
-//   into the A fragment by byte permutes, no decode (8 weights a 16-byte
-//   load at cw 2).
+//   loaded, so FOLD (mxu, fold) scales each quant block's f32 sum with the
+//   scales it loaded beside the codes: one scale load, one set of C
+//   fragments. A dense bf16 stack's rows pair into the A fragment by byte
+//   permutes, no decode (8 weights a 16-byte load at cw 2).
 // - Q8 (mxu8): x is quantized inside the launch. Each warp quantizes the
 //   32-K blocks of every x chunk it stages, with the JAX package's
 //   expression, straight into the registers of the m16n8k32 B fragments
@@ -62,19 +63,292 @@
 //   stream: two launches in flight on two streams must not share a ticket
 //   buffer.
 //
-// Numerics do not change. STD: f32 code times f32 scale (plus zero),
+// Numerics. STD (std, mxuflat, B6): f32 code times f32 scale (plus zero),
 // rounded once to bf16, products summed in f32 (a dense stack: its bf16
-// weights as they are). FOLD (int4 layout, block 32): raw codes, each 32-K
-// block summed in f32, times the f32 column scale. Q8: exact int32 block
-// partials, times the f32 scale, times the f32 activation scale, summed in
-// f32.
+// weights as they are). FOLD (mxu over the int4 layout; fold over sym_int4,
+// the codebooks and sym_int8): raw codes (a codebook value rounded to
+// bf16), each quant block summed in f32, times the f32 column scale, as
+// `_gemv_kernel_fold` does. A unit of the K loop (a 16-row load of each
+// lane's words) is 32 K of a 4-bit kind or 16 K of sym_int8, so a 64-K
+// codebook block and a 32-K sym_int8 block span two units: their partial
+// lives over both and is scaled once. Scaling each unit's sum instead (two
+// FMAs a block, no partial held across units) ran 1-10% slower over nf4
+// and sym_int8 at M 8 and 32 and nf4 at M 16, 2% faster only for sym_int8
+// at M 16, timed in turns on the H100 (PERF.md section 6). Q8: exact int32
+// block partials, times the f32 scale, times the f32 activation scale,
+// summed in f32.
 //
 // RAGGED (B6): block z takes 128-row tile z of x, expert tile_expert[z] of
 // an [E, ...] stack, and its first tile_rows[z] rows, at most 8 NT (the
 // caller's max_tile_rows); the tile's other rows are written as zeros.
 #pragma once
 
-#include "dequant_mma.cuh"
+#include "common.cuh"
+
+// quantized weight kinds (bigdl_tpu_torch.ops.cuda.dequant_matmul._KIND)
+enum WeightKind : int {
+    KIND_SYM4 = 0,       // (c - 8) * s
+    KIND_ASYM4 = 1,      // c * s + z
+    KIND_CODEBOOK4 = 2,  // lut[c] * s
+    KIND_SYM8 = 3,       // c * s, int8 codes
+    KIND_BF16 = 4,       // dense bf16 weights (B6 over a dense stack)
+    KIND_I4 = 5,         // s * c, signed int4 codes in K-row pairs
+};
+
+// kinds whose packed rows are K rows (16 a unit), not nibble pairs
+__host__ __device__ constexpr bool row_units(int kind) {
+    return kind == KIND_SYM8 || kind == KIND_BF16;
+}
+
+// The weight words of the small-M body and the Hopper body
+// (dequant_wgmma.cuh): how a lane loads packed rows and dequantizes them.
+namespace dqmma {
+
+// B6's per-tile weight address: tile z multiplies by expert
+// tile_expert[z] of an [E, ...] stack of planes.
+struct RaggedArgs {
+    const int* tile_expert;   // [tiles] expert of each tile
+    const int* tile_rows;     // [tiles] real rows of each tile
+    long long data_es;        // expert stride of the data plane (bytes)
+    long long scale_es;       // expert stride of the scale/zero planes
+    int num_experts;
+};
+
+constexpr int kChunk = 64;               // K per staged x chunk
+constexpr int kLd = kChunk + 8;          // xs row stride: 144 B, no ldmatrix
+                                         // bank conflicts
+
+// exact small integer -> f32 without an int-to-float conversion
+__device__ __forceinline__ float code_f32(uint32_t c) {
+    return __uint_as_float(0x4B000000u | c) - 8388608.f;
+}
+
+// f32 value of one code (before the bf16 rounding); `_rn` keeps nvcc from
+// contracting the asym multiply-add into an fma
+template <int KIND>
+__device__ __forceinline__ float dequant_f32(uint32_t c, float s, float z,
+                                             const float* lut) {
+    if (KIND == KIND_ASYM4) return __fadd_rn(__fmul_rn(code_f32(c), s), z);
+    if (KIND == KIND_CODEBOOK4) return __fmul_rn(lut[c], s);
+    if (KIND == KIND_SYM8)                  // c is the int8 byte
+        return __fmul_rn(code_f32(c ^ 0x80u) - 128.f, s);
+    return __fmul_rn(code_f32(c) - 8.f, s);
+}
+
+// Load NW consecutive 32-bit words (NW * 4 bytes, aligned to that size).
+template <int NW>
+__device__ __forceinline__ void ldg_words(const void* p, uint32_t* out) {
+    if (NW == 1) {
+        out[0] = __ldg(reinterpret_cast<const uint32_t*>(p));
+    } else if (NW == 2) {
+        const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+        out[0] = v.x;
+        out[1] = v.y;
+    } else {
+#pragma unroll
+        for (int q = 0; q < NW / 4; ++q) {
+            const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + q);
+            out[4 * q] = v.x;
+            out[4 * q + 1] = v.y;
+            out[4 * q + 2] = v.z;
+            out[4 * q + 3] = v.w;
+        }
+    }
+}
+
+// A chunk's packed words and scales for one thread, which owns 4 * CW
+// adjacent columns. A unit is 16 packed rows: two k steps for 4-bit codes
+// (low, then high nibbles), one for int8 and bf16. A bf16 row of 4 * CW
+// columns is 2 * CW words.
+//
+// Q8 is the mxu8 body's m16n8k32 fragment (chunk_mma_q8 below): 32 K a
+// unit (one quant block), lane t's k slots 4t..4t+3 and 16+4t..16+4t+3.
+// int4-layout rows are then 2t, 2t+1, 2t+8, 2t+9 of the unit, as for the
+// split-block nibbles; int8 rows 4t..4t+3 of a 16-row half unit.
+template <int KIND, int CW, bool Q8 = false>
+struct Words {
+    static constexpr int kUnits = row_units(KIND) ? 4 : 2;
+    static constexpr int kRowWords = KIND == KIND_BF16 ? 2 * CW : CW;
+    uint32_t w[kUnits][4][kRowWords];       // (see unit_row)
+    uint32_t s[kUnits][2 * CW];             // bf16 scales, 2 columns a word
+    uint32_t z[kUnits][2 * CW];             // bf16 zeros (asym)
+};
+
+// Packed row i (of 4) that lane t loads in a 16-row unit: rows 2t, 2t+1,
+// 2t+8, 2t+9, the k slots 2t, 2t+1, 2t+8, 2t+9 of a k step (of both the low
+// and the high nibbles' steps for split-block codes); the int4 layout's t,
+// t+4, t+8, t+12 (a byte holds K rows 2i, 2i+1: the unit's two k steps).
+template <int KIND, bool Q8>
+__device__ __forceinline__ int unit_row(int t, int i) {
+    if (Q8 && KIND == KIND_SYM8) return 4 * t + i;
+    if (!Q8 && KIND == KIND_I4) return t + 4 * i;
+    return 2 * t + (i & 1) + 8 * (i >> 1);
+}
+
+// The quant block of each kind: 64 for the codebook formats (nf4, fp4,
+// nf3), 32 for sym_int4, asym_int4, sym_int8 and the int4 layout.
+template <int KIND>
+__host__ __device__ constexpr int kind_block() {
+    return KIND == KIND_CODEBOOK4 ? 64 : 32;
+}
+
+// K rows of a unit: 16 packed rows of nibbles are 32 K, of int8/bf16 16.
+template <int KIND>
+__host__ __device__ constexpr int unit_k() {
+    return row_units(KIND) ? 16 : 32;
+}
+
+// Load this thread's packed words and scales for the chunk at K offset k0
+// (klen valid K rows).
+template <int KIND, int CW, bool Q8 = false>
+__device__ __forceinline__ void load_chunk(
+    Words<KIND, CW, Q8>& f, const uint8_t* __restrict__ data,
+    const uint16_t* __restrict__ scale, const uint16_t* __restrict__ zero,
+    int k0, int klen, int N, int ncol, bool col_ok, int block, int t) {
+    using W = Words<KIND, CW, Q8>;
+    constexpr bool kInt8 = row_units(KIND);
+    constexpr int kRowWords = W::kRowWords;
+    const int half = block >> 1;
+#pragma unroll
+    for (int u = 0; u < W::kUnits; ++u) {
+        // first packed row of the unit and its quant block
+        const int p = kInt8 ? k0 + 16 * u : (k0 >> 1) + 16 * u;
+        [[maybe_unused]] const int gb = kInt8 ? p / block : p / half;
+        if (col_ok && unit_k<KIND>() * u < klen) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int row = p + unit_row<KIND, Q8>(t, i);
+                // bf16 rows are 2 bytes a column
+                ldg_words<kRowWords>(
+                    data + ((size_t)row * N + ncol) * (kRowWords / CW),
+                    f.w[u][i]);
+            }
+            if constexpr (KIND != KIND_BF16) {
+                ldg_words<2 * CW>(scale + (size_t)gb * N + ncol, f.s[u]);
+            }
+            if (KIND == KIND_ASYM4) {
+                ldg_words<2 * CW>(zero + (size_t)gb * N + ncol, f.z[u]);
+            }
+        } else {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+#pragma unroll
+                for (int c = 0; c < kRowWords; ++c) f.w[u][i][c] = 0u;
+            }
+#pragma unroll
+            for (int c = 0; c < 2 * CW; ++c) {
+                f.s[u][c] = 0u;
+                f.z[u][c] = 0u;
+            }
+        }
+    }
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+    return __uint_as_float(w << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+    return __uint_as_float(w & 0xffff0000u);
+}
+
+// The codebook table entry the FOLD policy reads for the value v: its bf16
+// bits (rounded to nearest even), kept in a float slot of the table.
+__device__ __forceinline__ float fold_lut_entry(float v) {
+    return __uint_as_float(f32_to_bf16(v));
+}
+
+// Bf16 pair of one k step for this thread's column 4c + j: {k slots 2t
+// and 2t+1, k slots 2t+8 and 2t+9} of byte j of word c (b[0], b[1]). For
+// split-block codes `hi` picks the high nibbles, for the int4 layout the
+// unit's second k step (rows t+8, t+12). FOLD leaves the scale out: the
+// code itself, or a codebook value rounded to bf16 (lut then holds
+// fold_lut_entry of each value). WT is any Words.
+template <int KIND, int CW, bool FOLD, class WT>
+__device__ __forceinline__ void dequant_col(const WT& f, int u, bool hi,
+                                            const float* lut, int c, int j,
+                                            uint32_t* b) {
+    uint32_t sw = 0u;                 // FOLD reads no scale here
+    if constexpr (!FOLD) sw = f.s[u][2 * c + (j >> 1)];
+    if (FOLD && KIND == KIND_CODEBOOK4) {
+        // the table entries of rows 2t and 2t + 1 (2t+8, 2t+9), read at the
+        // code's byte offset 4 c, paired by one byte permute
+        const int shift = 8 * j + (hi ? 4 : 0);
+        auto entry = [&](uint32_t w) {
+            const uint32_t off = (shift >= 2 ? w >> (shift - 2) : w << 2) &
+                                 0x3cu;
+            return __float_as_uint(*reinterpret_cast<const float*>(
+                reinterpret_cast<const char*>(lut) + off));
+        };
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            b[r] = __byte_perm(entry(f.w[u][2 * r][c]),
+                               entry(f.w[u][2 * r + 1][c]), 0x5410);
+        }
+    } else if (FOLD && KIND == KIND_SYM8) {
+        // byte j ^ 0x80 under the f32 exponent of 2^23 is 2^23 + 128 + the
+        // int8 code, exactly
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            float v[2];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                const uint32_t w = f.w[u][2 * r + i][c] ^ 0x80808080u;
+                v[i] = __uint_as_float(__byte_perm(w, 0x4B000000u,
+                                                   0x7540 | j)) -
+                       8388736.f;
+            }
+            b[r] = pack_bf16x2(v[0], v[1]);
+        }
+    } else if (KIND == KIND_I4) {
+        // byte j of the row and of the row >> 4: the codes of K rows 2i
+        // (low nibble) and 2i + 1 (high nibble) at bits 0-3 and 16-19; xor 8
+        // makes them the unsigned code c = s + 8, (0x4300 | c) the bf16
+        // 128 + c, and fma(v, 1, -136) the signed code exactly
+        const uint32_t s2 = __byte_perm(sw, 0u, (j & 1) ? 0x3232 : 0x1010);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const uint32_t w = f.w[u][2 * (hi ? 1 : 0) + r][c];
+            const uint32_t p = __byte_perm(w, w >> 4, j | ((4 + j) << 8));
+            const uint32_t v = lop3<0x6A>(p, 0x000f000fu, 0x43084308u);
+            const uint32_t d = fma_bf16x2(v, 0x3F803F80u, 0xC308C308u);
+            b[r] = FOLD ? d : fma_bf16x2(d, s2, 0x80008000u);
+        }
+    } else if (KIND == KIND_SYM4) {
+        // (0x4300 | q) is the bf16 value 128 + q; fma(v, 1, -136)
+        // is q - 8 exactly, fma(q - 8, s, -0) rounds the exact
+        // product once
+        const uint32_t s2 = __byte_perm(sw, 0u, (j & 1) ? 0x3232 : 0x1010);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            uint32_t p = __byte_perm(f.w[u][2 * r][c], f.w[u][2 * r + 1][c],
+                                     j | ((4 + j) << 8));
+            if (hi) p >>= 4;
+            const uint32_t v = lop3<0xEA>(p, 0x000f000fu, 0x43004300u);
+            const uint32_t d = fma_bf16x2(v, 0x3F803F80u, 0xC308C308u);
+            b[r] = FOLD ? d : fma_bf16x2(d, s2, 0x80008000u);
+        }
+    } else {
+        // FOLD: the code (or table value) itself, rounded to bf16
+        const float sf = FOLD ? 1.f : (j & 1) ? bf16_hi(sw) : bf16_lo(sw);
+        float zf = 0.f;
+        if (KIND == KIND_ASYM4) {
+            const uint32_t zw = f.z[u][2 * c + (j >> 1)];
+            zf = (j & 1) ? bf16_hi(zw) : bf16_lo(zw);
+        }
+        const int shift = 8 * j + (hi ? 4 : 0);
+        const uint32_t mask = KIND == KIND_SYM8 ? 0xffu : 0xfu;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const uint32_t c0 = (f.w[u][2 * r][c] >> shift) & mask;
+            const uint32_t c1 = (f.w[u][2 * r + 1][c] >> shift) & mask;
+            b[r] = pack_bf16x2(dequant_f32<KIND>(c0, sf, zf, lut),
+                               dequant_f32<KIND>(c1, sf, zf, lut));
+        }
+    }
+}
+
+}  // namespace dqmma
 
 namespace smallm {
 
@@ -167,6 +441,10 @@ __device__ __forceinline__ void chunk_mma(float (*acc)[NT][4],
     constexpr int uk = dqmma::unit_k<KIND>();
     constexpr int kBlock = dqmma::kind_block<KIND>();
     constexpr int half = kBlock >> 1;
+    // FOLD: a quant block's f32 partials, summed over its units (one a
+    // sym_int4 or int4-layout block, two a codebook or sym_int8 block)
+    constexpr int kFoldUnits = kBlock / uk;
+    [[maybe_unused]] float part[FOLD ? 2 * CW : 1][NT][4];
 #pragma unroll
     for (int u = 0; u < W::kUnits; ++u) {
         if (uk * u >= klen) continue;
@@ -229,20 +507,26 @@ __device__ __forceinline__ void chunk_mma(float (*acc)[NT][4],
             for (int nt = 0; nt < NT; ++nt) {
                 if (nt >= nt_live) continue;
                 if constexpr (FOLD) {
-                    // the 32-K block's sum, then times the column's scale
-                    // (column 2p: low half of scale word p, 2p + 1: high)
-                    float part[4] = {0.f, 0.f, 0.f, 0.f};
+                    // the quant block's sum over its units, then times the
+                    // column's scale (column 2p: low half of scale word p,
+                    // 2p + 1: high)
+                    float* pt = part[p][nt];
+                    if (u % kFoldUnits == 0) {
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) pt[e] = 0.f;
+                    }
 #pragma unroll
                     for (int st = 0; st < NS; ++st) {
-                        mma_bf16(part, a[st], bx[st][nt][0], bx[st][nt][1]);
+                        mma_bf16(pt, a[st], bx[st][nt][0], bx[st][nt][1]);
                     }
+                    if (u % kFoldUnits != kFoldUnits - 1) continue;
                     const uint32_t sw = f.s[u][p];
                     const float lo = dqmma::bf16_lo(sw);
                     const float hi = dqmma::bf16_hi(sw);
-                    acc[p][nt][0] = fmaf(part[0], lo, acc[p][nt][0]);
-                    acc[p][nt][1] = fmaf(part[1], lo, acc[p][nt][1]);
-                    acc[p][nt][2] = fmaf(part[2], hi, acc[p][nt][2]);
-                    acc[p][nt][3] = fmaf(part[3], hi, acc[p][nt][3]);
+                    acc[p][nt][0] = fmaf(pt[0], lo, acc[p][nt][0]);
+                    acc[p][nt][1] = fmaf(pt[1], lo, acc[p][nt][1]);
+                    acc[p][nt][2] = fmaf(pt[2], hi, acc[p][nt][2]);
+                    acc[p][nt][3] = fmaf(pt[3], hi, acc[p][nt][3]);
                 } else {
 #pragma unroll
                     for (int st = 0; st < NS; ++st) {
@@ -342,7 +626,7 @@ __device__ __forceinline__ void transpose_bytes(uint32_t r0, uint32_t r1,
 // a byte four at a time; int8: rows 4t..4t+3's bytes.
 template <int KIND, int CW>
 __device__ __forceinline__ void widen_word(
-    const Words<KIND, CW, false, true>& f, int b, int c,
+    const Words<KIND, CW, true>& f, int b, int c,
     uint32_t (&v)[2][4]) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -367,8 +651,7 @@ __device__ __forceinline__ void widen_word(
 // int32 partial times the column's scale and then the token's sx, in f32.
 template <int NT, int CW, int KIND>
 __device__ __forceinline__ void chunk_mma_q8(float (*acc)[NT][4],
-                                             const Words<KIND, CW, false,
-                                                         true>& f,
+                                             const Words<KIND, CW, true>& f,
                                              const uint16_t (*xs)[kLd],
                                              int klen, int nt_live,
                                              int lane) {
@@ -431,7 +714,8 @@ smallm_body(const uint16_t* __restrict__ x,       // [M, Kp] bf16
     constexpr int kAcc = P * NT * 4;
     // the kind's quant block (args_ok checks the caller's)
     constexpr int kBlock = dqmma::kind_block<KIND>();
-    static_assert(!FOLD || KIND == KIND_I4, "FOLD reads the int4 layout");
+    static_assert(!FOLD || (KIND != KIND_ASYM4 && KIND != KIND_BF16),
+                  "FOLD takes sym, codebook and int4-layout weights");
     static_assert(!RAGGED || (!FOLD && !Q8), "B6 takes the std numerics");
     static_assert(!Q8 || (!FOLD && (KIND == KIND_I4 || KIND == KIND_SYM8)),
                   "Q8 reads int4-layout or sym_int8 weights");
@@ -470,7 +754,9 @@ smallm_body(const uint16_t* __restrict__ x,       // [M, Kp] bf16
     const int ncol = blockIdx.x * kCols + g * 4 * CW;   // the lane's columns
     const bool col_ok = ncol < N;          // N % (4 * CW) == 0: all or none
     if (KIND == KIND_CODEBOOK4) {
-        if (tid < 16) lut[tid] = lut_g[tid];
+        if (tid < 16) {
+            lut[tid] = FOLD ? dqmma::fold_lut_entry(lut_g[tid]) : lut_g[tid];
+        }
         __syncthreads();
     }
 
@@ -498,15 +784,15 @@ smallm_body(const uint16_t* __restrict__ x,       // [M, Kp] bf16
 
     // Chunk i's words sit in ring[i % STAGES], its x in xs[i % STAGES]; the
     // loop is unrolled by STAGES so every slot index is a constant.
-    Words<KIND, CW, false, Q8> ring[STAGES];
+    Words<KIND, CW, Q8> ring[STAGES];
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
         if (s < mine) {
             const int k0 = (c0 + kWarps * s) * kChunk;
             stage_rows<R>(xs[s], x, m_live, 8 * nt_live, Kp, k0, lane);
-            dqmma::load_chunk<KIND, CW, false, Q8>(
+            dqmma::load_chunk<KIND, CW, Q8>(
                 ring[s], data, scale, zero, k0, min(kChunk, Kp - k0), N,
-                ncol, col_ok, 0, kBlock, t);
+                ncol, col_ok, kBlock, t);
         }
         cp_async_commit();
     }
@@ -521,9 +807,9 @@ smallm_body(const uint16_t* __restrict__ x,       // [M, Kp] bf16
             if (in < mine) {
                 const int k0 = (c0 + kWarps * in) * kChunk;
                 stage_rows<R>(xs[sn], x, m_live, 8 * nt_live, Kp, k0, lane);
-                dqmma::load_chunk<KIND, CW, false, Q8>(
+                dqmma::load_chunk<KIND, CW, Q8>(
                     ring[sn], data, scale, zero, k0, min(kChunk, Kp - k0), N,
-                    ncol, col_ok, 0, kBlock, t);
+                    ncol, col_ok, kBlock, t);
             }
             cp_async_commit();
             cp_async_wait<STAGES - 1>();   // chunk i's x has landed
@@ -769,12 +1055,17 @@ int blocks_per_sm() {
         default: break;                                                   \
     }
 
-// The shape rules of a small-M launch.
+// The shape rules of a small-M launch over quantized weights (see the
+// wrappers in bigdl_tpu_torch/ops/cuda/dequant_matmul.py).
 inline bool args_ok(int M, int Kp, int N, int block, int kind, int split,
                     int cps, const void* ws, const void* tickets, int cw) {
-    return dqmma::args_ok(M, Kp, N, block, kind, split, cps, ws, cw) &&
-           block == (kind == KIND_CODEBOOK4 ? 64 : 32) &&
-           (split == 1 || tickets != nullptr);
+    const int nchunks = (Kp + kChunk - 1) / kChunk;
+    return M >= 1 && Kp >= block && N >= 4 && N % (4 * cw) == 0 &&
+           Kp % block == 0 && kind >= 0 && kind <= KIND_I4 &&
+           block == (kind == KIND_CODEBOOK4 ? 64 : 32) && split >= 1 &&
+           cps >= 1 && (split - 1) * cps < nchunks &&
+           split * cps >= nchunks &&
+           (split == 1 || (ws != nullptr && tickets != nullptr));
 }
 
 }  // namespace smallm

@@ -21,18 +21,15 @@
 // Bound on the H100: bytes (decode M moves 4.5 bits a weight, 8 for
 // sym_int8, for 2 M flops).
 //
-// mxu, the load path's decode default, and mxu8 run on the small-M body of
-// dequant_smallm.cuh: the weights are the mma A operand, so the C rows a
-// lane holds are the columns whose codes and scales it loaded, and FOLD
-// (and Q8) need no second scale load and no second set of C fragments;
+// All four run on the small-M body of dequant_smallm.cuh, as B1's std body
+// does: the weights are the mma A operand, so the C rows a lane holds are
+// the columns whose codes and scales it loaded, and FOLD (mxu, fold) and
+// Q8 (mxu8) need no second scale load and no second set of C fragments;
 // 16-byte loads at M <= 16, one launch with the K split summed by the last
-// block. mxu8 quantizes x inside that launch, each warp the chunks it
-// stages, and multiplies on the s8 m16n8k32 mma. fold and mxuflat
-// (flag-selected) run on the tensor-core template of dequant_mma.cuh,
-// where x is the A operand: FOLD
-// there keeps a second set of f32 C fragments and loads its C columns'
-// scales, so fold runs at 2 (M <= 16) or 1 words a thread per row to stay
-// under 255 registers, and a K split takes a second kernel.
+// block of a strip. fold is the FOLD policy over the canonical kinds
+// (sym_int4, the codebooks, sym_int8), mxuflat the STD policy over the int4
+// layout. mxu8 quantizes x inside that launch, each warp the chunks it
+// stages, and multiplies on the s8 m16n8k32 mma.
 #include "dequant_smallm.cuh"
 
 enum Body : int {
@@ -42,40 +39,38 @@ enum Body : int {
     BODY_MXU8 = 3
 };
 
-// Calls F(MT, CW, STAGES, KIND, FOLD) for the dequant_mma.cuh variant a
-// launch of fold or mxuflat takes, or returns `err` for a combination
-// that no variant takes.
-#define BIGDL_VARIANT(F, err)                                               \
+// Calls F(NT, CW, KIND, FOLD, Q8) for the small-M variant that a body and
+// a weight kind take, or leaves the switch for a pair no variant takes.
+#define BIGDL_BODY_KINDS(F, NT, CW)                                         \
     switch (body) {                                                         \
-        case BODY_FOLD:                                                     \
-            BIGDL_FOLD_KIND(F, KIND_SYM4)                                   \
-            BIGDL_FOLD_KIND(F, KIND_CODEBOOK4)                              \
-            BIGDL_FOLD_KIND(F, KIND_SYM8)                                   \
+        case BODY_MXU:                                                      \
+            if (kind == KIND_I4) F(NT, CW, KIND_I4, true, false)            \
             break;                                                          \
         case BODY_MXUFLAT:                                                  \
-            if (M <= 16 && cw == 4) F(1, 4, 2, KIND_I4, false)              \
-            if (M <= 16 && cw == 1) F(1, 1, 4, KIND_I4, false)              \
-            if (M <= 32 && cw == 4) F(2, 4, 2, KIND_I4, false)              \
-            if (M <= 32 && cw == 1) F(2, 1, 4, KIND_I4, false)              \
+            if (kind == KIND_I4) F(NT, CW, KIND_I4, false, false)           \
             break;                                                          \
-    }                                                                       \
-    return err;
-
-#define BIGDL_FOLD_KIND(F, K)                                               \
-    if (kind == K) {                                                        \
-        if (M <= 16 && cw == 2) F(1, 2, 2, K, true)                         \
-        if (M <= 16 && cw == 1) F(1, 1, 4, K, true)                         \
-        if (M <= 32 && cw == 1) F(2, 1, 4, K, true)                         \
+        case BODY_FOLD:                                                     \
+            if (kind == KIND_SYM4) F(NT, CW, KIND_SYM4, true, false)        \
+            if (kind == KIND_CODEBOOK4)                                     \
+                F(NT, CW, KIND_CODEBOOK4, true, false)                      \
+            if (kind == KIND_SYM8) F(NT, CW, KIND_SYM8, true, false)        \
+            break;                                                          \
+        case BODY_MXU8:                                                     \
+            if (kind == KIND_I4) F(NT, CW, KIND_I4, false, true)            \
+            if (kind == KIND_SYM8) F(NT, CW, KIND_SYM8, false, true)        \
+            break;                                                          \
+        default:                                                            \
+            break;                                                          \
     }
 
-// Returns the cudaError_t of the launches (0 on success). body picks the
-// variant (Body); kind is the weight kind of `fold` (KIND_SYM4,
-// KIND_CODEBOOK4 or KIND_SYM8) and of `mxu8` (KIND_I4 or KIND_SYM8); the
-// others read KIND_I4. x is bf16 [M, Kp] (mxu8 quantizes it in the launch);
-// ws holds split * M * N floats when split > 1; tickets (mxu, mxu8) at
-// least ceil(N / (32 cw)) zeroed counters when split > 1; y is bf16
-// [M, N]; K is cut into chunks of 64, chunks_per_split per block row; cw
-// is the words a thread loads per packed row.
+// Returns the cudaError_t of the launch (0 on success). body picks the
+// variant (Body); kind is the weight kind: KIND_SYM4, KIND_CODEBOOK4 or
+// KIND_SYM8 for fold, KIND_I4 or KIND_SYM8 for mxu8, KIND_I4 for mxu and
+// mxuflat. x is bf16 [M, Kp] (mxu8 quantizes it in the launch); ws holds
+// split * M * N floats and tickets at least ceil(N / (32 cw)) zeroed
+// counters when split > 1; y is bf16 [M, N]; K is cut into chunks of 64,
+// chunks_per_split per block row; cw is the words a thread loads per
+// packed row (4 or 1 at M <= 16, 2 or 1 above).
 extern "C" int bigdl_dequant_variant(int body, const void* x,
                                      const void* data, const void* scale,
                                      const void* lut, void* ws,
@@ -83,50 +78,23 @@ extern "C" int bigdl_dequant_variant(int body, const void* x,
                                      int N, int block, int kind, int split,
                                      int chunks_per_split, int cw,
                                      void* stream) {
-    // the int4 layout is sym_int4 (block 32); fold's block is its kind's
-    const bool kind_ok =
-        body == BODY_FOLD ? true
-        : body == BODY_MXU8 ? (kind == KIND_I4 || kind == KIND_SYM8)
-                            : kind == KIND_I4;
-    const int want_block = kind == KIND_CODEBOOK4 ? 64 : 32;
-    if (!kind_ok || block != want_block || x == nullptr ||
-        ((uintptr_t)x & 15) ||
-        !dqmma::args_ok(M, Kp, N, block, kind, split, chunks_per_split, ws,
-                        cw)) {
+    if (M > 32 || x == nullptr || ((uintptr_t)x & 15) ||
+        !smallm::args_ok(M, Kp, N, block, kind, split, chunks_per_split, ws,
+                         tickets, cw)) {
         return (int)cudaErrorInvalidValue;
     }
     cudaStream_t st = (cudaStream_t)stream;
-    if (body == BODY_MXU || body == BODY_MXU8) {
-        if (M > 32 || !smallm::args_ok(M, Kp, N, block, kind, split,
-                                       chunks_per_split, ws, tickets, cw)) {
-            return (int)cudaErrorInvalidValue;
-        }
-#define BIGDL_Q8_LAUNCH(NT, CW, K)                                         \
-    return smallm::launch<NT, CW, K, false, false, true>(                  \
+#define BIGDL_VARIANT_LAUNCH(NT, CW, K, FOLD, Q8)                          \
+    return smallm::launch<NT, CW, K, FOLD, false, Q8>(                     \
         x, data, scale, nullptr, lut, ws, tickets, y, M, Kp, N, split,     \
         chunks_per_split, 1, dqmma::RaggedArgs{}, st);
-#define BIGDL_MXU_LAUNCH(NT, CW)                                           \
+#define BIGDL_VARIANT(NT, CW)                                              \
     {                                                                      \
-        if (body == BODY_MXU) {                                            \
-            return smallm::launch<NT, CW, KIND_I4, true, false>(           \
-                x, data, scale, nullptr, lut, ws, tickets, y, M, Kp, N,    \
-                split, chunks_per_split, 1, dqmma::RaggedArgs{}, st);      \
-        }                                                                  \
-        if (kind == KIND_I4) { BIGDL_Q8_LAUNCH(NT, CW, KIND_I4) }          \
-        BIGDL_Q8_LAUNCH(NT, CW, KIND_SYM8)                                 \
+        BIGDL_BODY_KINDS(BIGDL_VARIANT_LAUNCH, NT, CW)                     \
+        return (int)cudaErrorInvalidValue;                                 \
     }
-        BIGDL_SMALLM_VARIANTS(BIGDL_MXU_LAUNCH, M, cw,
-                              (int)cudaErrorInvalidValue)
-#undef BIGDL_MXU_LAUNCH
-#undef BIGDL_Q8_LAUNCH
-    }
-#define BIGDL_VARIANT_LAUNCH(MT, CW, ST, K, FOLD)                          \
-    {                                                                      \
-        return dqmma::launch_variant<MT, CW, ST, K, FOLD>(                 \
-            x, data, scale, lut, ws, y, M, Kp, N, block, split,            \
-            chunks_per_split, st);                                         \
-    }
-    BIGDL_VARIANT(BIGDL_VARIANT_LAUNCH, (int)cudaErrorInvalidValue)
+    BIGDL_SMALLM_VARIANTS(BIGDL_VARIANT, M, cw, (int)cudaErrorInvalidValue)
+#undef BIGDL_VARIANT
 #undef BIGDL_VARIANT_LAUNCH
 }
 
@@ -134,28 +102,14 @@ extern "C" int bigdl_dequant_variant(int body, const void* x,
 // takes (0 on error); the wrapper sizes its K split from it.
 extern "C" int bigdl_dequant_variant_blocks_per_sm(int body, int M, int kind,
                                                    int cw) {
-    if (body == BODY_MXU || body == BODY_MXU8) {
-#define BIGDL_SMALLM_OCC(NT, CW, K, FOLD, Q8) \
+#define BIGDL_VARIANT_OCC(NT, CW, K, FOLD, Q8) \
     return smallm::blocks_per_sm<NT, CW, K, FOLD, false, Q8>();
-#define BIGDL_MXU_OCC(NT, CW)                                              \
-    {                                                                      \
-        if (body == BODY_MXU) {                                            \
-            BIGDL_SMALLM_OCC(NT, CW, KIND_I4, true, false)                 \
-        }                                                                  \
-        if (kind == KIND_I4) {                                             \
-            BIGDL_SMALLM_OCC(NT, CW, KIND_I4, false, true)                 \
-        }                                                                  \
-        if (kind == KIND_SYM8) {                                           \
-            BIGDL_SMALLM_OCC(NT, CW, KIND_SYM8, false, true)               \
-        }                                                                  \
-        return 0;                                                          \
+#define BIGDL_VARIANT(NT, CW)                           \
+    {                                                   \
+        BIGDL_BODY_KINDS(BIGDL_VARIANT_OCC, NT, CW)     \
+        return 0;                                       \
     }
-        BIGDL_SMALLM_VARIANTS(BIGDL_MXU_OCC, M, cw, 0)
-#undef BIGDL_MXU_OCC
-#undef BIGDL_SMALLM_OCC
-    }
-#define BIGDL_VARIANT_OCC(MT, CW, ST, K, FOLD) \
-    { return dqmma::variant_blocks_per_sm<MT, CW, ST, K, FOLD>(); }
-    BIGDL_VARIANT(BIGDL_VARIANT_OCC, 0)
+    BIGDL_SMALLM_VARIANTS(BIGDL_VARIANT, M, cw, 0)
+#undef BIGDL_VARIANT
 #undef BIGDL_VARIANT_OCC
 }

@@ -16,9 +16,9 @@
 // does 23 GFLOP against 51 MB of packed planes, 0.023 ms at 989 TFLOP/s).
 // B6 over a 256-token Mixtral chunk: bytes (each tile holding rows streams
 // its expert's 33 MB of planes, or 117 MB of a dense bf16 stack, for 52-128
-// rows). What held the mma.sync body of dequant_mma.cuh back was the work
-// around each weight, not the tensor cores: every thread loaded 4-byte
-// words straight from device memory, synchronously with its
+// rows). What held the port's first body (mma.sync, x as the A operand)
+// back was the work around each weight, not the tensor cores: every thread
+// loaded 4-byte words straight from device memory, synchronously with its
 // dequantization, and mma.sync could not overlap the next step's
 // dequantization.
 //
@@ -27,8 +27,8 @@
 //   shared memory. The body computes y^T tiles: A is 64 output columns (a
 //   warpgroup's tile) by 16 K, each warp dequantizing its 16 columns into
 //   the fragment dequant_smallm.cuh builds (lane (g, t) holds columns 2g and
-//   2g + 1 of its warp's 16, as A rows g and g + 8), with dequant_col of
-//   dequant_mma.cuh: one decode for both bodies. B is x's [n tokens, 16 K]
+//   2g + 1 of its warp's 16, as A rows g and g + 8), with its dequant_col:
+//   one decode for both bodies. B is x's [n tokens, 16 K]
 //   slice; x [M, Kp] row-major is K-major for B, so it lands by TMA as it is
 //   (128-byte rows, 128-byte swizzle) and the descriptor steps 32 bytes a k
 //   step. n = 64 at M <= 64 and n = 128 above (B6: per tile, from
@@ -88,15 +88,13 @@
 // ops/cuda/dequant_matmul.py::plane_loads and
 // ops/cuda/moe_dispatch.py::dense_loads make the same choice.
 //
-// Numerics are the STD policy of dequant_mma.cuh: f32 code times f32 block
+// Numerics are the small-M body's STD policy: f32 code times f32 block
 // scale (plus zero for asym, the LUT value for nf4 / fp4 / nf3), rounded
 // once to bf16, x in bf16, products summed in f32; a dense stack's bf16
 // weights are multiplied as they are.
 //
 // A wait on a barrier phase that never completes traps after ~2 s of
 // clock instead of hanging the card.
-//
-// Out of scope, on dequant_mma.cuh: B1's fold and mxuflat bodies.
 #pragma once
 
 #include <string.h>

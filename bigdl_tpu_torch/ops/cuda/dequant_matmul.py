@@ -4,10 +4,9 @@ version.
 
 Counterpart of ``bigdl_tpu/ops/pallas/dequant_matmul.py``
 (``_q_gemv_pallas`` and ``_q_matmul_generic``). Each Pallas body is a
-CUDA body on the tensor-core dequant matmul of ``csrc/dequant_mma.cuh``,
-marked (*) on the small-M body of ``csrc/dequant_smallm.cuh`` and (**) on
-the Hopper GEMM body of ``csrc/dequant_wgmma.cuh``, counting its launches
-under its own name:
+CUDA body, B1's on the small-M body of ``csrc/dequant_smallm.cuh`` (*),
+B2's on the Hopper GEMM body of ``csrc/dequant_wgmma.cuh`` (**), counting
+its launches under its own name:
 
 ========================  ==========================  ===================
 launch counter            Pallas body                 source
@@ -16,7 +15,9 @@ launch counter            Pallas body                 source
 ``dequant_gemv_mxu``      B1 ``_gemv_kernel_mxu``     dequant_variants.cu
                                                       (*)
 ``dequant_gemv_fold``     B1 ``_gemv_kernel_fold``    dequant_variants.cu
+                                                      (*)
 ``dequant_gemv_mxuflat``  B1 ``_gemv_kernel_mxuflat`` dequant_variants.cu
+                                                      (*)
 ``dequant_gemv_mxu8``     B1 ``_gemv_kernel_mxu8``    dequant_variants.cu
                                                       (*)
 ``dequant_gemm``          B2 ``_kernel_4bit/_int8``   dequant_gemm.cu (**)
@@ -43,9 +44,11 @@ The std bodies (``dequant_gemv``, ``dequant_gemm``), ``mxuflat`` and
 zero for asym) and round it once to bf16, round x to bf16 and sum in f32:
 their plain version is ``plain_q_matmul``. ``mxu`` and ``fold`` feed the
 raw codes (exact in bf16; a codebook value rounded to bf16) to the product
-and scale each block's f32 partial once: ``plain_q_matmul_fused``, the
-port of ``_q_matmul_xla_fused``. ``mxu8`` quantizes x to int8 per 32-K
-block, takes exact integer block products and scales them in f32:
+and scale each block's f32 partial once: ``plain_q_matmul_fused`` (mxu),
+the port of ``_q_matmul_xla_fused``, and ``plain_q_matmul_fold``, which
+also takes the codebooks that one refuses (fp4, nf3). ``mxu8`` quantizes
+x to int8 per 32-K block, takes exact integer block products and scales
+them in f32:
 ``plain_q_matmul_q8``, whose quantization ``quantize_x_q8`` runs on the
 CPU only (the kernel quantizes x itself). The int4-layout bodies (mxu,
 mxuflat, mxu8, i4) take only a prepacked sym_int4 weight
@@ -61,7 +64,7 @@ import torch
 
 from bigdl_tpu_torch import _native
 from bigdl_tpu_torch.config import MATMUL_MAX_M_CEILING
-from bigdl_tpu_torch.ops.codebooks import CODEBOOKS, padded_lut
+from bigdl_tpu_torch.ops.codebooks import padded_lut
 from bigdl_tpu_torch.ops.cuda import LAUNCHES
 from bigdl_tpu_torch.ops.quant import (QTensor, _unpack4, dequantize,
                                        get_qtype, unpack_int4_rows)
@@ -70,10 +73,8 @@ from bigdl_tpu_torch.ops.quant import (QTensor, _unpack4, dequantize,
 GEMV_MAX_M = 32
 # rows of one dequant-GEMM launch
 GEMM_MAX_M = MATMUL_MAX_M_CEILING
-# K rows per staged chunk and warps per block (kChunk, kWarps in
-# csrc/dequant_mma.cuh)
+# K rows per staged chunk (kChunk in csrc/dequant_smallm.cuh)
 _CHUNK = 64
-_WARPS = 4
 # qtypes the kernels take (all six ported formats)
 KERNEL_QTYPES = frozenset(
     {"sym_int4", "asym_int4", "nf4", "fp4", "nf3", "sym_int8"})
@@ -94,10 +95,9 @@ _GEMM = {"std": "dequant_gemm", "i4": "dequant_gemm_i4"}
 _VARIANT_BODY = {"dequant_gemv_mxu": 0, "dequant_gemv_fold": 1,
                  "dequant_gemv_mxuflat": 2, "dequant_gemv_mxu8": 3}
 
-# geometry names on the small-M body (dequant_smallm.cuh): B1's std, mxu
-# and mxu8 bodies and B6's small-M entry (ops/cuda/moe_dispatch.py)
-_SMALLM = frozenset({"dequant_gemv", "dequant_gemv_mxu", "dequant_gemv_mxu8",
-                     "moe_dispatch_smallm"})
+# geometry names on the small-M body (dequant_smallm.cuh): every body of
+# B1 and B6's small-M entry (ops/cuda/moe_dispatch.py)
+_SMALLM = frozenset(set(_GEMV.values()) | {"moe_dispatch_smallm"})
 # geometry names on the Hopper GEMM body (dequant_wgmma.cuh): B2's two
 # bodies and B6's tiles entry (ops/cuda/moe_dispatch.py)
 _WGMMA = frozenset({"dequant_gemm", "dequant_gemm_i4", "moe_dispatch"})
@@ -128,17 +128,13 @@ def plain_q_matmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     return y.to(torch.bfloat16)
 
 
-def plain_q_matmul_fused(x: torch.Tensor, w: QTensor) -> torch.Tensor:
-    """x [M, K] @ W -> [M, N] bf16 with the scales folded out of the
-    product (the port of ``_q_matmul_xla_fused``): the raw codes as bf16
-    (int4-layout and sym_int8 codes directly, split-block codes minus 8, a
-    codebook value rounded to bf16), one batched product per quant block
-    with f32 sums, times the f32 scale, summed over blocks, plus the asym
-    zero term. The plain version of the mxu and fold bodies."""
+def _block_products(x: torch.Tensor, w: QTensor):
+    """(x [r, M, B], part [r, M, N]): x as f32 of its bf16 values, cut into
+    the r quant blocks of K (zero-padded to Kp), and each block's product
+    with the raw codes as bf16 (int4-layout and int8 codes as they are,
+    split-block codes minus 8 or, asym, as they are, a codebook value from
+    ``padded_lut`` rounded to bf16), summed in f32."""
     qt = w.qt
-    if qt.name not in FUSED_QTYPES:
-        raise NotImplementedError(
-            f"fused matmul does not support {w.qtype}")
     b, (k, n), kp = qt.block_size, w.shape, w.kp
     x2 = x.reshape(-1, k).to(torch.bfloat16).to(torch.float32)
     if kp != k:
@@ -152,17 +148,40 @@ def plain_q_matmul_fused(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     else:
         codes = _unpack4(w.data, b)
         if qt.kind == "codebook":
-            lut = torch.from_numpy(CODEBOOKS[qt.codebook]).to(codes.device)
+            lut = torch.from_numpy(padded_lut(qt.codebook)).to(codes.device)
             cb = lut.to(torch.bfloat16)[codes.long()].to(torch.float32)
         elif qt.kind == "sym":
             cb = codes.to(torch.float32) - 8.0
         else:                                                # asym
             cb = codes.to(torch.float32)
-    part = torch.bmm(x3, cb.reshape(rows, b, n))             # [r, M, N]
+    return x3, torch.bmm(x3, cb.reshape(rows, b, n))
+
+
+def plain_q_matmul_fused(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """x [M, K] @ W -> [M, N] bf16 with the scales folded out of the
+    product (the port of ``_q_matmul_xla_fused``): ``_block_products``,
+    times the f32 scale, summed over blocks, plus the asym zero term. The
+    plain version of the mxu body."""
+    qt = w.qt
+    if qt.name not in FUSED_QTYPES:
+        raise NotImplementedError(
+            f"fused matmul does not support {w.qtype}")
+    x3, part = _block_products(x, w)
     y = (part * w.scale.to(torch.float32)[:, None, :]).sum(dim=0)
     if qt.kind == "asym":
         xsum = x3.sum(dim=2).t()                             # [M, r]
         y = y + torch.matmul(xsum, w.zero.to(torch.float32))
+    return y.to(torch.bfloat16)
+
+
+def plain_q_matmul_fold(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """x [M, K] @ W -> [M, N] bf16 as ``_gemv_kernel_fold`` computes it, for
+    every weight the fold body takes (sym_int4, nf4, fp4, nf3 and sym_int8
+    in the canonical packing): ``_block_products``, times the f32 block
+    scale, summed over blocks. The plain version of the fold body."""
+    _check_body("fold", w)
+    _, part = _block_products(x, w)
+    y = (part * w.scale.to(torch.float32)[:, None, :]).sum(dim=0)
     return y.to(torch.bfloat16)
 
 
@@ -205,7 +224,7 @@ def plain_q_matmul_q8(x: torch.Tensor, w: QTensor) -> torch.Tensor:
 
 
 _PLAIN = {"std": plain_q_matmul, "mxu": plain_q_matmul_fused,
-          "fold": plain_q_matmul_fused, "mxuflat": plain_q_matmul,
+          "fold": plain_q_matmul_fold, "mxuflat": plain_q_matmul,
           "mxu8": plain_q_matmul_q8, "i4": plain_q_matmul}
 
 
@@ -330,27 +349,19 @@ def _cw(name: str, n: int, m: int = 1) -> int:
     """32-bit words (4 columns each) a thread loads per packed row. The
     small-M body: 4 (16-byte loads) at M <= 16 and 2 above (its f32 sums
     grow with the n8 tiles of tokens) where the row allows them, else 1.
-    mxuflat: 4 where N % 16 == 0. fold (dequant_mma.cuh): 2 at one m-tile
-    (its second set of C fragments leaves no registers for more). Else
-    1."""
+    Else (the Hopper body) 1."""
     if name in _SMALLM:
         if m <= 16:
             return 4 if n % 16 == 0 else 1
         return 2 if n % 8 == 0 else 1
-    if name == "dequant_gemv_mxuflat":
-        return 4 if n % 16 == 0 else 1
-    if name == "dequant_gemv_fold":
-        return 2 if m <= 16 and n % 8 == 0 else 1
     return 1
 
 
 def _block_cols(name: str, cw: int) -> int:
     """Output columns one block computes: a strip of 32 * cw on the
     small-M body (its 4 warps split the strip's K), ``WGMMA_COLS`` on the
-    Hopper body, 4 warps of 32 * cw each on dequant_mma.cuh."""
-    if name in _WGMMA:
-        return WGMMA_COLS
-    return (32 if name in _SMALLM else _WARPS * 32) * cw
+    Hopper body."""
+    return WGMMA_COLS if name in _WGMMA else 32 * cw
 
 
 def wgmma_tokens(m: int) -> int:
@@ -430,16 +441,9 @@ def _split_k(name: str, m: int, n: int, kp: int, kind: int, cw: int,
     """(split, chunks per split): cut K (in 64-row chunks) into splits
     for the launch's blocks (``tiles`` row tiles of column strips), with
     no empty split. The small-M body takes ``_balanced_split``, the Hopper
-    body ``wgmma_split``, dequant_mma.cuh's bodies as many splits as keep
-    every block resident at once (one wave)."""
-    if name in _SMALLM:
-        tier = smallm_rows(m)                                  # n8 tiles
-    elif name in _WGMMA:
-        tier = wgmma_tokens(m)                                 # variants
-    elif name.startswith("dequant_gemv"):
-        tier = m <= 16                                         # m-tiles
-    else:
-        tier = m <= 64
+    body ``wgmma_split``."""
+    smallm = name in _SMALLM
+    tier = smallm_rows(m) if smallm else wgmma_tokens(m)      # variants
     key = (name, tier, kind, cw, device.index)
     occ = _occupancy.get(key)
     if occ is None:
@@ -448,15 +452,10 @@ def _split_k(name: str, m: int, n: int, kp: int, kind: int, cw: int,
             raise RuntimeError(f"{name}: occupancy query failed")
         _occupancy[key] = occ
     chunks = -(-kp // _CHUNK)
-    blocks = tiles * (wgmma_strips(n) if name in _WGMMA
-                      else -(-n // _block_cols(name, cw)))
+    blocks = tiles * -(-n // _block_cols(name, cw))
     slots = occ * _sm_count(device)
-    if name in _SMALLM:
-        split = _balanced_split(blocks, slots, chunks)
-    elif name in _WGMMA:
-        split = wgmma_split(blocks, slots, chunks)
-    else:
-        split = max(1, min(chunks, slots // blocks))
+    split = (_balanced_split if smallm else wgmma_split)(blocks, slots,
+                                                         chunks)
     per = -(-chunks // split)
     return -(-chunks // per), per
 
@@ -514,14 +513,13 @@ def _launch(name: str, x: torch.Tensor, w: QTensor) -> torch.Tensor:
     kind = _kind(w)
     cw = _cw(name, n, m)
     split, per = _split_k(name, m, n, kp, kind, cw, x2.device)
-    # a K split's partials in the device's workspace; the small-M body sums
-    # them in the same launch, one ticket a strip
+    # a K split's partials in the device's workspace, summed in the same
+    # launch, one ticket a strip
     wsp = tickets = None
     if split > 1:
         wsp = workspace_buffer(x2.device, split * m * n).data_ptr()
-        if name in _SMALLM:
-            tickets = ticket_buffer(
-                x2.device, -(-n // _block_cols(name, cw))).data_ptr()
+        tickets = ticket_buffer(
+            x2.device, -(-n // _block_cols(name, cw))).data_ptr()
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
     stream = _stream(x2.device)
     if name in _VARIANT_BODY:
@@ -530,7 +528,7 @@ def _launch(name: str, x: torch.Tensor, w: QTensor) -> torch.Tensor:
             w.scale.data_ptr(), _lut_ptr(w, x2.device), wsp, tickets,
             y.data_ptr(), m, kp, n, w.qt.block_size, kind, split, per, cw,
             stream)
-    else:                                  # dequant_gemv (small-M body)
+    else:                                  # dequant_gemv
         err = _native.kernel(name)(
             x2.data_ptr(), w.data.data_ptr(), w.scale.data_ptr(),
             None if w.zero is None else w.zero.data_ptr(),

@@ -54,7 +54,7 @@ TOKEN_TILE = 128
 # stage 8, 16 or 32 token rows)
 SMALLM_MAX_ROWS = 32
 
-# weight kind of a dense bf16 stack (KIND_BF16 in csrc/dequant_mma.cuh)
+# weight kind of a dense bf16 stack (KIND_BF16 in csrc/dequant_smallm.cuh)
 _KIND_BF16 = 4
 # K rows of a dense stack's unit of work (the small-M body loads whole
 # 16-row units): K must be a multiple of this

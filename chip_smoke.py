@@ -33,15 +33,16 @@ Phases, all of them on every run, each printing one JSON line:
    again over fp8_e5m2, int8 and int4 caches (codes and f32 scales; the
    yardstick dequantizes, then calls SDPA), timed at the main path's
    shapes, B5 bit-equal to B3 for each kind. B1's mxu, fold, mxuflat and
-   mxu8 bodies and B2's i4 body run against their own plain versions,
-   timed on Llama-2-7B's gate_up (4096 x 22016) at M 8 (i4: 128) over the
-   int4 layout (fold over the canonical sym_int4, nf4 and sym_int8; mxu8,
-   which quantizes x inside its one launch, at M 1, 8, 16 and 32 over the
-   int4 layout and sym_int8, and must launch one kernel a call), and
-   checked at the other m-tile counts; mxu (M 1,
-   8, 16, 32, timed on gate_up) and i4 (M 33, 64, 100, 128; 33 and 100
-   timed), the load path's defaults, are also checked on each of the
-   other four Llama-2-7B linears.
+   mxu8 bodies (all on the small-M body) and B2's i4 body run against
+   their own plain versions, timed on Llama-2-7B's gate_up (4096 x 22016)
+   at M 1, 8, 16 and 32 (i4: 33, 100, 128) over the int4 layout (fold over
+   the canonical sym_int4, nf4 and sym_int8, fp4 and nf3 at M 8; mxu8,
+   which quantizes x inside its one launch, also over sym_int8), checked
+   at M 17, at a K-padded shape and at N % 8 != 0; fold, mxuflat and mxu8
+   must launch one small-M kernel a call on gate_up, whose K they split;
+   mxu (M 1, 8, 16, 32) and i4 (M 33, 64, 100, 128; 33 and 100 timed),
+   the load path's defaults, are also checked on each of the other four
+   Llama-2-7B linears.
 4. reference: a 2-layer cut of the full-width model, prefill + one decode
    step on the card (kernels) against the same on the CPU (plain).
 5. engine: seeded full-width Llama-2-7B, sym_int4 linears, merged
@@ -50,8 +51,8 @@ Phases, all of them on every run, each printing one JSON line:
    each; every request must finish, greedy and seeded requests must repeat,
    and every kernel's launch count must rise during the run. A last pass
    of the same requests profiles a few pure-decode steps (device time by
-   kernel group, launches, idle share, and the device time of dequant
-   split-K sums, a second kernel no small-M launch needs).
+   kernel group, launches, idle share; one B3 kernel a B3 call and at
+   most one small-M kernel a B1 call, of any body).
 5b. prefill_profile: torch.profiler over one prefill of a 100-token
    prompt (B2 takes its linears) through a fresh engine, after a warm-up
    prefill: device time by kernel group, idle share, launches. Phase 15b
@@ -93,7 +94,9 @@ Phases, all of them on every run, each printing one JSON line:
    eight requests twice and a profiled decode window: every request
    finishes, streams repeat, mxu and i4 launch and std B1/B2 do not, peak
    memory is within 1% of the engine phase's; then once under
-   ``mxuflat`` and once under ``mxu8`` (each body must launch).
+   ``mxuflat`` and once under ``mxu8`` (each body must launch; the fold
+   and mxuflat passes profile a decode window: small-M kernels, at most
+   one a B1 call).
 12b. hf_load: the README's Quick start entry. A Llama-2-7B float
    checkpoint (full width, 4 layers, bf16, sharded under an index, seeded
    weights) is written with ``write_safetensors`` and loaded with
@@ -954,7 +957,7 @@ def _variant_cases(timer, randn):
     bodies = (("dequant_gemv_mxu", gemv("mxu"), dm.plain_q_matmul_fused),
               ("dequant_gemv_mxuflat", gemv("mxuflat"), dm.plain_q_matmul),
               ("dequant_gemv_mxu8", gemv("mxu8"), dm.plain_q_matmul_q8))
-    fold = ("dequant_gemv_fold", gemv("fold"), dm.plain_q_matmul_fused)
+    fold = ("dequant_gemv_fold", gemv("fold"), dm.plain_q_matmul_fold)
     # the load path's defaults (mxu decode, i4 prefill chunk) at every
     # linear a prepacked Llama-2-7B runs them on: each linear's weight
     # loads and split-K count differ from gate_up's (i4 timed at the
@@ -970,40 +973,38 @@ def _variant_cases(timer, randn):
                 10 if m in (33, 100) else 0, linear=lname)
         del wm
     k, n = LLAMA2_7B_LINEARS["gate_up_proj"]
-    for qtype in ("sym_int4", "nf4", "sym_int8"):
+    for qtype in ("sym_int4", "nf4", "sym_int8", "fp4", "nf3"):
         w = quantize(randn(k, n, scale=0.02), qtype)
-        run(*fold, w, 8, k, 10, linear="gate_up_proj")
+        # fold (the small-M body) at 1, 2 and 4 n8 tiles of tokens (fp4
+        # and nf3 timed at M 8), one kernel a call with a K split
+        for m in (1, 8, 16, 17, 32):
+            timed = m == 8 or (m != 17 and qtype in ("sym_int4", "nf4",
+                                                     "sym_int8"))
+            run(*fold, w, m, k, 10 if timed else 0, linear="gate_up_proj")
+        _one_kernel_a_call("dequant_gemv_fold", fold[1], w, randn)
         if qtype == "sym_int8":
-            # mxu8 (the small-M body) at 1, 2 and 4 n8 tiles of tokens,
-            # one kernel a call
+            # mxu8 at 1, 2 and 4 n8 tiles of tokens, one kernel a call
             for m in (1, 8, 16, 32):
                 run(*bodies[2], w, m, k, 10, linear="gate_up_proj")
             _one_kernel_a_call("dequant_gemv_mxu8", bodies[2][1], w, randn)
         if qtype != "sym_int4":
             continue
         wm = to_mxu_layout(w)
-        for body in bodies:
-            run(*body, wm, 8, k, 10, linear="gate_up_proj")
-        # mxu and mxu8 (the small-M body) timed at their other n8-tile
-        # counts
-        for m in (1, 16, 32):
-            for body in (bodies[0], bodies[2]):
-                run(*body, wm, m, k, 10, linear="gate_up_proj")
-        _one_kernel_a_call("dequant_gemv_mxu8", bodies[2][1], wm, randn)
-        run("dequant_gemm_i4", i4, dm.plain_q_matmul, wm, 128, k, 10,
-            linear="gate_up_proj")
-        # the other m-tile counts and words a thread, untimed
-        for m in (1, 17, 32):
-            for body in bodies[1:2] if m != 17 else bodies:
-                run(*body, wm, m, k, 0, linear="gate_up_proj")
-            run(*fold, w, m, k, 0, linear="gate_up_proj")
-        for m in (33, 40, 64, 100):
+        # mxu, mxuflat and mxu8 over the int4 layout at 1, 2 and 4 n8
+        # tiles (17 untimed), mxuflat and mxu8 one kernel a call
+        for m in (1, 8, 16, 17, 32):
+            for body in bodies:
+                run(*body, wm, m, k, 0 if m == 17 else 10,
+                    linear="gate_up_proj")
+        for body in bodies[1:]:
+            _one_kernel_a_call(body[0], body[1], wm, randn)
+        for m in (33, 40, 64, 100, 128):
             run("dequant_gemm_i4", i4, dm.plain_q_matmul, wm, m, k,
-                10 if m in (33, 100) else 0, linear="gate_up_proj")
+                10 if m in (33, 100, 128) else 0, linear="gate_up_proj")
         del wm
     # a K-padded shape and the one-word loads (N % 8 != 0), untimed
     for k, n in ((1000, 512), (640, 260)):
-        for qtype in ("sym_int4", "nf4", "sym_int8"):
+        for qtype in ("sym_int4", "nf4", "sym_int8", "fp4", "nf3"):
             w = quantize(randn(k, n, scale=0.05), qtype)
             for m in (8, 20):
                 run(*fold, w, m, k, 0)
@@ -1021,13 +1022,19 @@ def _variant_cases(timer, randn):
 def _one_kernel_a_call(name, fn, w, randn, calls=5, windows=3):
     """The device kernels `calls` calls of fn (a B1 body at M 8 on w)
     launch, from torch.profiler after a warm call: exactly one a call (no
-    quantize launches, no split-K sum). torch.profiler loses device
-    records now and then (see _profile_decode), so a window with fewer is
-    measured again, at most `windows` in all; one with more fails."""
+    quantize launches, no split-K sum), on a shape whose K the wrapper
+    splits. torch.profiler loses device records now and then (see
+    _profile_decode), so a window with fewer is measured again, at most
+    `windows` in all; one with more fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from bigdl_tpu_torch.ops.cuda import dequant_matmul as dm
+
     x = randn(8, w.k).to(torch.bfloat16)
+    split = dm._split_k(name, 8, w.n, w.kp, dm._kind(w),
+                        dm._cw(name, w.n, 8), x.device)[0]
+    require(split > 1, f"{name}: K not split on {w.k} x {w.n}")
     fn(x, w)
     torch.cuda.synchronize()
     for window in range(windows):
@@ -1040,11 +1047,13 @@ def _one_kernel_a_call(name, fn, w, randn, calls=5, windows=3):
         total = sum(kernels.values())
         require(total <= calls, f"{name}: {total} kernels for {calls} "
                 f"calls: {kernels}")
+        require(all("smallm_gemv" in key for key in kernels),
+                f"{name}: a kernel other than the small-M body: {kernels}")
         if total == calls:
             emit({"phase": "kernels", "check": "kernels_per_call",
                   "kernel": name, "qtype": w.qtype, "layout": w.layout,
-                  "M": 8, "calls": calls, "device_kernels": kernels,
-                  "windows": window + 1})
+                  "M": 8, "split": split, "calls": calls,
+                  "device_kernels": kernels, "windows": window + 1})
             return
     require(False, f"{name}: fewer kernels than calls in each of "
             f"{windows} windows: {kernels}")
@@ -1207,9 +1216,7 @@ def _kernel_group(name: str) -> str:
     for key, group in (("smallm_ragged", "ragged_expert_matmul (B6)"),
                        ("wgmma_ragged", "ragged_expert_matmul (B6)"),
                        ("wgmma_gemm", "dequant_gemm (B2)"),
-                       ("dequant_mma", "dequant_gemv (B1)"),
                        ("smallm_gemv", "dequant_gemv (B1)"),
-                       ("finalize_kernel", "dequant split-K sum"),
                        ("decode_attention", "decode_attention (B3)"),
                        ("prefill_attention", "prefill_attention (B4)"),
                        ("gemm", "torch matmul"), ("nvjet", "torch matmul"),
@@ -1243,14 +1250,17 @@ def _device_ms_by_group(prof, steps):
 def _profile_decode(eng, requests, steps=4, windows=3):
     """Device time of `steps` pure-decode steps (all slots active) by
     kernel group, from torch.profiler, beside the steps' wall time, with
-    one B3-group kernel required for each B3/B5 call. torch.profiler loses
+    one B3-group kernel required for each B3/B5 call and at most one
+    small-M kernel for each B1 call (any body). torch.profiler loses
     device records now and then: of 60 windows of tools/profile_decode.py
     on an H100, half on this code and half on its parent commit's, two
     lost a burst of 52 and 65 records, one of them a B3 kernel each, while
     the host's launch calls stayed the same in every window (PERF.md
-    section 7). A window with fewer B3 records
+    section 7); late in a full smoke run each of three Mixtral windows
+    lost one B1 record. A window with fewer B3 records
     than calls is therefore measured again, at most `windows` in all; one
-    with more fails at once, as does a run whose every window lost one."""
+    with more B3 or B1 kernels than calls fails at once, as does a run
+    whose every window lost a B3 record."""
     out = {}
     for w in range(windows):
         out = _decode_window(eng, requests, steps, f"-prof{w}")
@@ -1258,9 +1268,12 @@ def _profile_decode(eng, requests, steps=4, windows=3):
         if b3 is None:                  # the profiler did not measure
             return out
         calls = out["attention_calls_per_step"]
+        b1, b1_calls = out["b1_launches_per_step"], out["b1_calls_per_step"]
         require(0 < calls and b3 <= calls,
                 f"decode_profile: {b3} decode attention kernels a step "
                 f"for {calls} calls")
+        require(b1 <= b1_calls, f"decode_profile: {b1} small-M B1 kernels "
+                f"a step for {b1_calls} B1 calls")
         if b3 == calls:
             out["windows"] = w + 1
             return out
@@ -1278,11 +1291,14 @@ def _decode_window(eng, requests, steps, tag):
 
     from bigdl_tpu_torch.ops.cuda import launch_counts
 
-    def attention_calls():
-        # B3 and B5 calls of every storage kind
+    def calls(*prefixes):
+        # launches of the wrappers counted under these names (B3 and B5:
+        # every storage kind; B1: every body)
         return sum(v for k, v in launch_counts().items()
-                   if k.startswith(("decode_attention",
-                                    "paged_decode_attention")))
+                   if k.startswith(prefixes))
+
+    def attention_calls():
+        return calls("decode_attention", "paged_decode_attention")
 
     for rid, prompt, sp in requests:
         eng.add_request(rid + tag, prompt, sp)
@@ -1296,7 +1312,7 @@ def _decode_window(eng, requests, steps, tag):
     except (RuntimeError, AttributeError) as e:   # profiler unavailable
         prof = None
         out["device_ms_per_step"] = f"not measured: {e}"
-    calls0 = attention_calls()
+    calls0, b1_calls0 = attention_calls(), calls("dequant_gemv")
     t0 = time.perf_counter()
     for _ in range(steps):
         eng.step()
@@ -1304,6 +1320,7 @@ def _decode_window(eng, requests, steps, tag):
     wall_ms = 1e3 * (time.perf_counter() - t0) / steps
     out["wall_ms_per_step"] = wall_ms
     out["attention_calls_per_step"] = (attention_calls() - calls0) / steps
+    out["b1_calls_per_step"] = (calls("dequant_gemv") - b1_calls0) / steps
     if prof is not None:
         prof.__exit__(None, None, None)
         try:
@@ -1312,16 +1329,17 @@ def _decode_window(eng, requests, steps, tag):
             groups, out["device_ms_per_step"] = {}, f"not measured: {e}"
         if groups:
             dev = sum(groups.values())
-            # B3 / B5 are one kernel a call (no merge pass): the step's
-            # launches fall by its attention calls against a two-kernel
-            # body (PERF.md section 5 keeps the earlier runs' counts)
+            # B3 / B5 and every B1 body are one kernel a call (no merge
+            # pass, no split-K sum): the step's launches fall by its
+            # attention calls against a two-kernel body (PERF.md section 5
+            # keeps the earlier runs' counts)
             out["attention_launches_per_step"] = by_group.get(
                 "decode_attention (B3)", 0.0)
+            out["b1_launches_per_step"] = by_group.get(
+                "dequant_gemv (B1)", 0.0)
             out.update(device_ms_per_step=dev,
                        device_idle_share=max(0.0, 1.0 - dev / wall_ms),
                        kernel_launches_per_step=launches,
-                       split_k_sum_ms_per_step=groups.get(
-                           "dequant split-K sum", 0.0),
                        device_ms_by_group=dict(sorted(
                            groups.items(), key=lambda kv: -kv[1])))
         else:
@@ -1855,7 +1873,8 @@ def phase_engine_prepack(params, cfg, slab_toks, slab_peak, max_new=32):
     canonical parameters, then ``TpuCausalLM(params)`` on the card (prepack
     auto: every sym_int4 leaf of `params` is relaid in place, leaf by leaf)
     served by ``LLMEngine(model)``: the eight requests twice and a profiled
-    decode window, then once under ``mxuflat`` and once under ``mxu8``.
+    decode window, then once under ``mxuflat`` and once under ``mxu8``
+    (``fold`` and ``mxuflat`` with a profiled decode window each).
     Every request finishes, greedy and seeded streams repeat, the mxu and
     i4 bodies launch and the std B1/B2 bodies do not, each flag's body
     launches, and the engine's peak memory is within 1% of the canonical
@@ -1897,6 +1916,14 @@ def phase_engine_prepack(params, cfg, slab_toks, slab_peak, max_new=32):
                 f"engine_prepack {mode}: not every request finished")
         require(counts[body] > 0, f"engine_prepack {mode}: {body} never "
                 "launched")
+        if mode in ("fold", "mxuflat"):
+            # the flag's body in decode: small-M kernels, none past one a
+            # B1 call
+            prof = _profile_decode(eng, requests)
+            flag_runs[mode]["decode_profile"] = prof
+            require(prof.get("b1_launches_per_step", 1) > 0,
+                    f"engine_prepack {mode}: no small-M B1 kernel in the "
+                    f"decode profile: {prof}")
         del eng
         gc.collect()
 
@@ -2679,11 +2706,12 @@ def summary(records, counts):
                 extra[routing] = {k: other[k] for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "entry", "max_abs_err", "ps_per_weight")}
-        if name == "dequant_gemv_mxu8":
-            # its other token counts and sym_int8, on gate_up
+        if name in ("dequant_gemv_fold", "dequant_gemv_mxuflat",
+                    "dequant_gemv_mxu8"):
+            # their other token counts and qtypes, on gate_up
             for r in mine:
-                if "ms" in r and r.get("linear") == "gate_up_proj" and (
-                        r["M"] != 8 or r["layout"] != "int4"):
+                if "ms" in r and r.get("linear") == "gate_up_proj" and r \
+                        is not main:
                     extra[f"{r['layout']}_{r['qtype']}_M{r['M']}"] = {
                         k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms",

@@ -425,7 +425,7 @@ def test_no_second_pass_and_one_header():
     csrc = _native.CSRC
     hdr = open(os.path.join(csrc, "dequant_wgmma.cuh")).read()
     assert "wgmma.mma_async" in hdr and "cp.async.bulk.tensor" in hdr
-    assert "finalize_kernel" not in hdr and "atomicAdd(&a.tickets" in hdr
+    assert "finalize" not in hdr and "atomicAdd(&a.tickets" in hdr
     gemm = open(os.path.join(csrc, "dequant_gemm.cu")).read()
     assert '#include "dequant_wgmma.cuh"' in gemm and "finalize" not in gemm
     moe = open(os.path.join(csrc, "moe_dispatch.cu")).read()

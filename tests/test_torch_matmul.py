@@ -293,6 +293,8 @@ GEMV_CASES = [("auto", "sym_int4", "int4", "mxu"),
               ("fold", "sym_int4", "canonical", "fold"),
               ("fold", "nf4", "canonical", "fold"),
               ("fold", "sym_int8", "canonical", "fold"),
+              ("fold", "fp4", "canonical", "fold"),
+              ("fold", "nf3", "canonical", "fold"),
               ("mxuflat", "sym_int4", "int4", "mxuflat"),
               ("mxu8", "sym_int4", "int4", "mxu8"),
               ("mxu8", "sym_int8", "canonical", "mxu8")]
@@ -421,15 +423,18 @@ def test_a_body_refuses_a_weight_it_does_not_read(fn, body, qtype, layout):
     ("dequant_gemv_fold", 8, 260, 1), ("dequant_gemv_mxu8", 1, 4096, 4),
     ("dequant_gemv_mxuflat", 8, 22016, 4), ("dequant_gemv_mxuflat", 8, 260,
                                             1),
-    ("dequant_gemm_i4", 128, 22016, 1)])
+    ("dequant_gemm_i4", 128, 22016, 1), ("dequant_gemv_fold", 8, 22016, 4),
+    ("dequant_gemv_fold", 20, 22016, 2), ("dequant_gemv_fold", 32, 260, 1),
+    ("dequant_gemv_mxuflat", 20, 22016, 2)])
 def test_variant_words_and_split(monkeypatch, name, m, n, cw):
     """Words a thread loads per packed row for each body, and the K split
-    from the occupancy query of the body's own library. mxu and mxu8 run
-    the small-M body: 16-byte loads at M <= 16, 8-byte above (the id's cw
-    is the dequant_mma body's: 2 at M 8, 1 at M 20), and query it through
-    the variants library's body id. i4 runs B2's Hopper body: its
-    library's query takes (M, kind), and the split is one wave of its
-    256-column strips."""
+    from the occupancy query of the body's own library. mxu, fold, mxuflat
+    and mxu8 run the small-M body: 16-byte loads at M <= 16, 8-byte above,
+    4-byte where N % 16 (M <= 16) or N % 8 (above) is not 0 (the mxu ids'
+    cw is an older body's: 2 at M 8, 1 at M 20), the split with the fewest
+    waves a split, and query it through the variants library's body id. i4
+    runs B2's Hopper body: its library's query takes (M, kind), and the
+    split is one wave of its 256-column strips."""
     cw = {("dequant_gemv_mxu", 8, 22016): 4,
           ("dequant_gemv_mxu", 20, 22016): 2}.get((name, m, n), cw)
     assert dm._cw(name, n, m) == cw
@@ -454,6 +459,6 @@ def test_variant_words_and_split(monkeypatch, name, m, n, cw):
         return
     assert lib == "dequant_variants"
     assert args == (dm._VARIANT_BODY[name], m, dm._KIND_I4, cw)
-    if name in dm._SMALLM:
-        assert split == -(-64 // -(-64 // dm._balanced_split(
-            -(-n // (32 * cw)), 2 * 132, 64)))
+    assert name in dm._SMALLM and dm._block_cols(name, cw) == 32 * cw
+    assert split == -(-64 // -(-64 // dm._balanced_split(
+        -(-n // (32 * cw)), 2 * 132, 64)))

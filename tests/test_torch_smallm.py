@@ -1,5 +1,6 @@
 """Launch geometry of the small-M body (``csrc/dequant_smallm.cuh``): B1's
-std and mxu decode GEMVs and B6's small-M entry, on the CPU.
+decode GEMVs (std, mxu, fold, mxuflat, mxu8) and B6's small-M entry, on
+the CPU.
 
 The CUDA kernels cannot run here, so these tests stand in for the native
 library (``_native.kernel``) and the device checks, as
@@ -168,6 +169,62 @@ def test_mxu8_is_one_small_m_launch(lib, monkeypatch, qtype, layout, m, k,
     assert args[1] != 0
 
 
+# (body, qtype, layout): fold over the canonical kinds it reads, mxuflat
+# over the int4 layout
+FOLD_MXUFLAT = [("fold", q, "canonical")
+                for q in ("sym_int4", "nf4", "fp4", "nf3", "sym_int8")] + [
+                    ("mxuflat", "sym_int4", "int4")]
+
+
+@pytest.mark.parametrize("body,qtype,layout", FOLD_MXUFLAT)
+@pytest.mark.parametrize("m", [1, 8, 9, 17, 32])
+@pytest.mark.parametrize("k,n", [(4096, 5504), (1000, 512), (640, 260)])
+def test_fold_and_mxuflat_take_the_small_m_body(lib, monkeypatch, body,
+                                                 qtype, layout, m, k, n):
+    """fold (sym_int4, nf4, fp4, nf3, sym_int8) and mxuflat (the int4
+    layout) are one native call of the variants library's body id with the
+    weight's kind, block and LUT, the small-M words and
+    ``_balanced_split``'s split from that variant's occupancy query, and,
+    when K is split, the device's workspace and tickets for every strip."""
+    monkeypatch.setattr(dm, "_workspaces", {})
+    w = _weight(k, n, layout, qtype)
+    name = dm._GEMV[body]
+    before = LAUNCHES[name]
+    # (the stood-in _prepare does not pad K to the weight's Kp)
+    x = torch.nn.functional.pad(torch.randn(m, k), (0, w.kp - k))
+    y = dm._launch(name, x, w)
+    assert y.shape == (m, n) and y.dtype == torch.bfloat16
+    assert LAUNCHES[name] == before + 1
+    (libname, sym, args), = lib.launches()
+    body_id = dm._VARIANT_BODY[name]
+    assert (libname, sym, args[0]) == ("dequant_variants", None, body_id)
+    kind = dm._KIND_I4 if body == "mxuflat" else {
+        "sym_int4": 0, "nf4": 2, "fp4": 2, "nf3": 2, "sym_int8": 3}[qtype]
+    block = 64 if kind == 2 else 32
+    kp = w.kp
+    cw = 4 if m <= 16 and n % 16 == 0 else \
+        2 if m > 16 and n % 8 == 0 else 1
+    assert dm._cw(name, n, m) == cw
+    strips, chunks = -(-n // (32 * cw)), -(-kp // 64)
+    split, per = dm._split_k(name, m, n, kp, kind, cw, torch.device("cpu"))
+    assert split == -(-chunks // -(-chunks // dm._balanced_split(
+        strips, OCC * SMS, chunks)))
+    assert (split - 1) * per < chunks <= split * per
+    assert args[8:] == (m, kp, n, block, kind, split, per, cw, 0)
+    assert (args[4] is not None) == (kind == 2)          # the codebook LUT
+    q = [c for c in lib.calls
+         if c[1] == "bigdl_dequant_variant_blocks_per_sm"]
+    assert q and q[0][2] == (body_id, m, kind, cw)
+    if split > 1:
+        assert args[5] == dm._workspaces[("cpu", None)].data_ptr()
+        assert dm._workspaces[("cpu", None)].numel() >= split * m * n
+        buf = dm._tickets[("cpu", None)]
+        assert args[6] == buf.data_ptr() and buf.numel() >= strips
+        assert buf.dtype == torch.int32 and not buf.any()
+    else:
+        assert args[5] is None and args[6] is None
+
+
 def test_workspace_buffer_is_kept_and_grown(monkeypatch):
     monkeypatch.setattr(dm, "_workspaces", {})
     cpu = torch.device("cpu")
@@ -191,16 +248,23 @@ def test_small_m_occupancy_is_asked_per_row_tier(lib):
 
 
 def test_no_second_pass_on_the_small_m_path():
-    """The std and mxu libraries and the small-M body launch no split-K
-    finalize kernel: the last block of a strip sums the splits."""
+    """Every B1 body (std; mxu, fold, mxuflat and mxu8 of the variants
+    library) launches the small-M body and no split-K finalize kernel: the
+    last block of a strip sums the splits. No other dequant body is left."""
     csrc = _native.CSRC
     body = open(os.path.join(csrc, "dequant_smallm.cuh")).read()
-    assert "finalize_kernel" not in body and "atomicAdd(&tickets" in body
+    assert "finalize" not in body and "atomicAdd(&tickets" in body
     gemv = open(os.path.join(csrc, "dequant_gemv.cu")).read()
     assert '#include "dequant_smallm.cuh"' in gemv
     assert "finalize" not in gemv and "dqmma::launch<" not in gemv
     variants = open(os.path.join(csrc, "dequant_variants.cu")).read()
-    assert "smallm::launch<NT, CW, KIND_I4, true, false>" in variants
+    assert '#include "dequant_smallm.cuh"' in variants
+    assert "finalize" not in variants and "dqmma::launch" not in variants
+    assert "smallm::launch<NT, CW, K, FOLD, false, Q8>" in variants
+    for b in ("BODY_MXU", "BODY_FOLD", "BODY_MXUFLAT", "BODY_MXU8"):
+        assert f"case {b}:" in variants
+    assert set(dm._GEMV.values()) <= dm._SMALLM
+    assert not os.path.exists(os.path.join(csrc, "dequant_mma.cuh"))
 
 
 @pytest.mark.parametrize("blocks,slots,chunks,split", [

@@ -1,6 +1,6 @@
 """Time the small-M dequant body of the PyTorch/CUDA port on one NVIDIA
-GPU: B1's std, mxu and mxu8 decode GEMVs and B6's decode entry, and the
-streaming rate of the body's weight loads alone.
+GPU: B1's decode GEMVs (std, mxu, fold, mxuflat, mxu8) and B6's decode
+entry, and the streaming rate of the body's weight loads alone.
 
     python3 tools/bench_smallm.py [--parent DIR]
 
@@ -8,8 +8,9 @@ Prints one JSON object a line:
 - the card (``nvidia-smi`` name and power limit);
 - B1 std (canonical sym_int4) and mxu (int4 layout) at M 1, 8, 16 and 32
   on the five Llama-2-7B linears, each the median of 10 cold-L2 launches
-  (``chip_smoke.Timer``) beside its byte bound; mxu8 at the same M over the
-  int4 layout and sym_int8 on gate_up;
+  (``chip_smoke.Timer``) beside its byte bound; on gate_up at the same M,
+  mxu8 over the int4 layout and sym_int8, fold over the canonical
+  sym_int4, nf4 and sym_int8, and mxuflat over the int4 layout;
 - gate_up at M 8 at each K split from 1 to 8 (the wrapper picks one),
   std, mxu and mxu8;
 - B6 on an 8-slot top-2 decode routing at Mixtral-8x7B's expert shapes,
@@ -22,7 +23,8 @@ Prints one JSON object a line:
 
 With ``--parent DIR`` (a checkout of another commit) the B1 and B6 rows
 run again from DIR's package, in turns: DIR, this tree, this tree, DIR.
-Needs a GPU; exits 1 without one.
+Then the registers and spill bytes of the variants library's small-M
+kernels (``nvcc -Xptxas -v``). Needs a GPU; exits 1 without one.
 """
 
 from __future__ import annotations
@@ -40,6 +42,41 @@ LINEAR_MS = (1, 8, 16, 32)
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def _registers() -> None:
+    """Registers and spill bytes of the variants library's small-M kernels
+    (``nvcc -Xptxas -v``)."""
+    import contextlib
+    import io
+    import re
+
+    from bigdl_tpu_torch import _native
+
+    flags = _native.NVCC_FLAGS
+    _native.NVCC_FLAGS = flags + ["-Xptxas", "-v"]
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            _native.build_all(("dequant_variants",))
+    finally:
+        _native.NVCC_FLAGS = flags
+    names = {(0, 1, 0): "fold sym_int4", (2, 1, 0): "fold codebook",
+             (3, 1, 0): "fold sym_int8", (5, 1, 0): "mxu",
+             (5, 0, 0): "mxuflat", (5, 0, 1): "mxu8 int4",
+             (3, 0, 1): "mxu8 sym_int8"}
+    for part in buf.getvalue().split("Compiling entry function")[1:]:
+        m = re.search(r"smallm_gemv_kernelILi(\d)ELi(\d)ELi(\d)ELb([01])"
+                      r"ELb([01])E", part)
+        used = re.search(r"Used (\d+) registers", part)
+        if not (m and used):
+            continue
+        nt, cw, kind, fold, q8 = map(int, m.groups())
+        spills = [int(v) for v in re.findall(
+            r"(\d+) bytes spill (?:stores|loads)", part)]
+        emit({"body": names.get((kind, fold, q8), f"kind {kind}"), "NT": nt,
+              "CW": cw, "registers": int(used.group(1)),
+              "spill_bytes": spills})
 
 
 def _times(root: str, tag: str, sweep: bool) -> None:
@@ -66,6 +103,23 @@ def _times(root: str, tag: str, sweep: bool) -> None:
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
 
+    def row(kernel, lname, ww, m, fn, **extra):
+        k, n = ww.shape
+        x = randn(m, k).to(torch.bfloat16)
+        emit({"tree": tag, "kernel": kernel, "linear": lname, **extra,
+              "M": m, "ms": timer.ms(lambda: fn(x, ww)),
+              "bound_ms": cs.bound_ms(m * k * 2 + ww.nbytes + m * n * 2,
+                                      2.0 * m * k * n)[0]})
+
+    def gemv(body):
+        return lambda x, ww: dm.dequant_gemv(x, ww, body)
+
+    k, n = cs.LLAMA2_7B_LINEARS["gate_up_proj"]
+    for qtype in ("sym_int4", "nf4", "sym_int8"):
+        w = quantize(randn(k, n, scale=0.02), qtype)
+        for m in LINEAR_MS:
+            row("B1 fold", "gate_up_proj", w, m, gemv("fold"), qtype=qtype)
+        del w
     for lname, (k, n) in cs.LLAMA2_7B_LINEARS.items():
         w = quantize(randn(k, n, scale=0.02), "sym_int4")
         wm = to_mxu_layout(w)
@@ -98,15 +152,11 @@ def _times(root: str, tag: str, sweep: bool) -> None:
             w8 = quantize(randn(k, n, scale=0.02), "sym_int8")
             for ww in (wm, w8):
                 for m in LINEAR_MS:
-                    x = randn(m, k).to(torch.bfloat16)
-                    emit({"tree": tag, "kernel": "B1 mxu8", "linear": lname,
-                          "qtype": ww.qtype, "layout": ww.layout, "M": m,
-                          "ms": timer.ms(
-                              lambda: dm.dequant_gemv(x, ww, "mxu8")),
-                          "bound_ms": cs.bound_ms(
-                              m * k * 2 + ww.nbytes + m * n * 2,
-                              2.0 * m * k * n)[0]})
+                    row("B1 mxu8", lname, ww, m, gemv("mxu8"),
+                        qtype=ww.qtype, layout=ww.layout)
             del w8
+            for m in LINEAR_MS:
+                row("B1 mxuflat", lname, wm, m, gemv("mxuflat"))
         del w, wm
     rows_kw = "max_tile_rows" in cmoe.ragged_expert_matmul.__code__.co_varnames
     for lname, (k, n) in cs.MIXTRAL_EXPERT_LINEARS.items():
@@ -204,6 +254,7 @@ def main() -> int:
                           (ROOT, "this tree"), (parent, "parent")):
             subprocess.run([sys.executable, os.path.abspath(__file__),
                             "--times-only", root, "--tag", tag], check=True)
+    _registers()
     _times(ROOT, "this tree", sweep=True)
     _probe()
     return 0
