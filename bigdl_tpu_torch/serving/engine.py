@@ -1,21 +1,24 @@
-"""Continuous-batching serving engine, lean port of
+"""Continuous-batching serving engine, port of
 ``bigdl_tpu/serving/engine.py::LLMEngine`` (slab and paged KV modes, every
 KV storage kind).
 
 Kept: the public surface of ``SamplingParams`` (max_tokens, temperature,
-top_k, top_p, stop_token_ids, seed), ``RequestOutput`` and
+top_k, top_p, stop_token_ids, ignore_eos, the repetition / presence /
+frequency penalties, n, best_of, logprobs, seed), ``LogprobEntry``,
+``RequestOutput`` (with its choice index, logprobs and error) and
 ``EngineConfig`` (max_batch, max_seq, prefill_bucket, prefill_chunk,
-kv_page_size, kv_pages, prefix_sharing, kv_cache_dtype, kv_quantized), and
-``add_request`` / ``step`` / ``get_outputs`` / ``has_unfinished`` /
-``generate`` / ``reset_prefix_cache``. Inside:
+preempt_after_steps, kv_page_size, kv_pages, prefix_sharing,
+kv_cache_dtype, kv_quantized), and ``add_request`` / ``abort_request`` /
+``step`` / ``get_outputs`` / ``has_unfinished`` / ``step_heartbeat_age`` /
+``stats_snapshot`` / ``generate`` / ``reset_prefix_cache``. Inside:
 
 - KV storage (``kv_cache_dtype``): bf16, fp8_e5m2, or int8 / int4 codes
   with f32 scale planes that move wherever their codes move (splice,
   prefix seeding, copy-on-write); int8/int4 need a family with
   ``SUPPORTS_SCALED_KV``;
 - slab mode: one batched KV cache [L, max_batch, max_seq, Hkv, hd] with a
-  per-slot position vector; a slot is a sequence's home for its
-  lifetime;
+  per-slot position vector; a slot is a sequence's home until it finishes
+  or is preempted;
 - paged mode (``kv_page_size`` > 0): one [L, P, page_size, Hkv, hd] arena
   per K/V plane, host block tables [max_batch, max_seq / page_size] with
   a device mirror refreshed only when a row changed, a refcounted page
@@ -28,20 +31,34 @@ kv_page_size, kv_pages, prefix_sharing, kv_cache_dtype, kv_quantized), and
   ever need (all or nothing) and seeds its prefix from shared pages;
 - one batched decode over all slots per step (idle slots decode garbage
   that is never read, as in the reference);
-- a batched sampler: greedy argmax, or temperature / top-k / top-p by
-  gumbel-max with noise from ``fold_in(PRNGKey(seed), position)``, the
-  JAX engine's threefry stream (``ops/random.py``): seeded streams equal
-  the JAX engine's up to one-ulp ties of its logs.
+- two samplers, split per slot as the JAX engine splits them. A slot with
+  no penalties and no logprobs is "simple": the batched device sampler
+  (greedy argmax, or temperature / top-k / top-p by gumbel-max with noise
+  from ``fold_in(PRNGKey(seed), position)``, the JAX engine's threefry
+  stream, ``ops/random.py``) serves it. The other slots' logits rows come
+  to the host in one copy a step and go through the JAX engine's numpy
+  sampler (penalties over prompt and output counts, the log-softmax
+  before temperature, top-k / top-p, ``default_rng((seed, position))``
+  for seeded rows and one persistent generator for the others);
+- n / best_of fan-out into child sequences ``rid#i`` (seed + i), ranked by
+  mean logprob when best_of > n; aborts of queued, admitting, decoding
+  and fanned-out requests; the stall guard's preemption by recompute (the
+  latest-arrived slot goes back to the queue, its tokens become prompt);
+- the JAX engine's serving metrics (``observability/metrics.py``) and
+  request spans (``observability/tracing.py``). ``get_outputs`` and the
+  queue are guarded by one lock: HTTP threads read outputs and add
+  requests while one thread steps the engine.
 
-Not ported yet: penalties, logprobs, n/best_of, the host prefix cache,
-preemption, overload control, deadlines, fault handling, migration and
-observability.
+Not ported yet: deadlines and overload control (``max_time_ms``, QoS,
+tenants), the host prefix cache, fault handling, the logits health check,
+migration and the rest of observability.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -50,6 +67,9 @@ import torch
 
 from bigdl_tpu_torch.config import (flags, resolve_kv_page_size,
                                     resolve_kv_pages, resolve_prefix_sharing)
+from bigdl_tpu_torch.observability.metrics import (MetricsRegistry,
+                                                   default_registry)
+from bigdl_tpu_torch.observability.tracing import RequestTracer
 from bigdl_tpu_torch.ops import random as rnd
 from bigdl_tpu_torch.ops.kvcache import (SCALED_KV_DTYPES, KVCache,
                                          raw_view, resolve_kv_cache_dtype)
@@ -65,7 +85,27 @@ class SamplingParams:
     top_k: int = 0
     top_p: float = 1.0
     stop_token_ids: Tuple[int, ...] = ()
+    ignore_eos: bool = False
+    # llama.cpp-form repetition penalty + OpenAI-form count penalties;
+    # 1.0 / 0.0 = off
+    repetition_penalty: float = 1.0
+    presence_penalty: float = 0.0
+    frequency_penalty: float = 0.0
+    # parallel sampling: best_of sequences (default n), the n best by mean
+    # logprob returned; n > 1 streams with choice indices, best_of > n
+    # buffers until every candidate finishes
+    n: int = 1
+    best_of: Optional[int] = None
+    # per-token logprobs: 0 = the chosen token's only, k > 0 also the top-k
+    # alternatives a step; None = off
+    logprobs: Optional[int] = None
     seed: Optional[int] = None
+
+    @property
+    def needs_counts(self) -> bool:
+        return (self.repetition_penalty != 1.0
+                or self.presence_penalty != 0.0
+                or self.frequency_penalty != 0.0)
 
 
 @dataclasses.dataclass
@@ -74,6 +114,19 @@ class Request:
     prompt_token_ids: List[int]
     params: SamplingParams
     arrival: float = dataclasses.field(default_factory=time.time)
+    # preempt-resume: tokens already generated (and streamed) before this
+    # re-admission; they are part of prompt_token_ids now and count
+    # against max_tokens without being emitted again
+    generated_offset: int = 0
+    resumed_cum_logprob: float = 0.0
+
+
+@dataclasses.dataclass
+class LogprobEntry:
+    """One emitted token's logprob record."""
+    token_id: int
+    logprob: float
+    top: List[Tuple[int, float]] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -82,6 +135,11 @@ class RequestOutput:
     new_token_ids: List[int]
     finished: bool
     finish_reason: Optional[str] = None
+    index: int = 0                    # choice index (n > 1 fan-out)
+    logprobs: Optional[List[LogprobEntry]] = None
+    # structured failure detail of a finish reason "error" (the JAX
+    # engine's quarantine; the port emits none yet)
+    error: Optional[dict] = None
 
 
 @dataclasses.dataclass
@@ -92,6 +150,11 @@ class EngineConfig:
     # a step() runs at most this many prompt tokens of prefill before the
     # batched decode (rounded down to a power of two)
     prefill_chunk: int = 256
+    # stall guard: when requests have waited this many consecutive steps
+    # with every slot busy, the latest-arrived running sequence is evicted
+    # to the back of the queue (its tokens so far become prompt,
+    # recomputed on readmission). 0 disables.
+    preempt_after_steps: int = 64
     # -- paged KV (ops/paged.py + serving/pagepool.py). None defers to
     # $BIGDL_TPU_TORCH_KV_PAGE_SIZE / _KV_PAGES / _PREFIX_SHARING.
     # token positions per arena page: 0 keeps the slab; otherwise a power
@@ -113,14 +176,41 @@ class EngineConfig:
 
 
 class _Slot:
-    __slots__ = ("req", "generated", "last_token", "active", "seed")
+    __slots__ = ("req", "generated", "last_token", "active", "counts",
+                 "counts_out", "rng", "cum_logprob", "n_logprobs",
+                 "dev_seed")
 
     def __init__(self):
         self.req: Optional[Request] = None
         self.generated: List[int] = []
         self.last_token = 0
         self.active = False
-        self.seed = 0           # sampler stream seed (31 bits)
+        # [V] int32 penalty counts: `counts` over prompt + output
+        # (repetition penalty), `counts_out` over output only
+        # (presence / frequency)
+        self.counts: Optional[np.ndarray] = None
+        self.counts_out: Optional[np.ndarray] = None
+        self.rng: Optional[np.random.Generator] = None
+        self.cum_logprob = 0.0          # over generated tokens
+        self.n_logprobs = -1            # -1: no logprobs tracked
+        self.dev_seed = 0               # device sampler stream (31 bits)
+
+
+@dataclasses.dataclass
+class _Fanout:
+    """Parent bookkeeping of n / best_of parallel sampling: child requests
+    ``rid#i`` run as independent sequences; outputs route back under the
+    parent id with choice indices."""
+    parent_id: str
+    n: int
+    best_of: int
+    # best_of > n: each child's stream is buffered until all finish, then
+    # the n best (by mean logprob) are emitted; n == best_of streams
+    buffered: Dict[int, List[RequestOutput]] = dataclasses.field(
+        default_factory=dict)
+    scores: Dict[int, float] = dataclasses.field(default_factory=dict)
+    lengths: Dict[int, int] = dataclasses.field(default_factory=dict)
+    done: int = 0
 
 
 @dataclasses.dataclass
@@ -198,10 +288,12 @@ class LLMEngine:
     model module whose ``check_supported`` / ``forward`` / ``new_cache``
     (and, for paged KV, ``forward_paged`` / ``new_paged_cache`` with
     ``SUPPORTS_PAGED_KV``) the engine calls. Drive it with add_request() +
-    step(), or generate()."""
+    step(), or generate(). One thread steps it; others may add, abort and
+    read outputs. Metrics go to `registry` (the process-wide one unless
+    given), request spans to ``self.tracer``."""
 
     def __init__(self, model: Any, config: Optional[EngineConfig] = None,
-                 device="cuda"):
+                 device="cuda", registry: Optional[MetricsRegistry] = None):
         self.cfg_engine = ce = config or EngineConfig()
         self.params = model.params
         self.cfg = model.config
@@ -266,30 +358,132 @@ class LLMEngine:
                 self.cfg, ce.max_batch, ce.max_seq, per_slot_pos=True,
                 device=self.device, kv_cache_dtype=self.kv_cache_dtype)
         self.slots = [_Slot() for _ in range(ce.max_batch)]
+        # admission pops the front, preemption appends to the back; HTTP
+        # threads append under _lock (see add_request)
         self.waiting: "collections.deque[Request]" = collections.deque()
         self._outputs: Dict[str, List[RequestOutput]] = {}
+        self._abort: set = set()
+        self._lock = threading.Lock()
+        # n / best_of fan-out: child request id -> (parent id, choice index)
+        self._children: Dict[str, Tuple[str, int]] = {}
+        self._fanouts: Dict[str, _Fanout] = {}
+        self._stall_steps = 0       # consecutive steps with a starved queue
+        self._step_idx = 0          # lifetime step() counter
+        self._last_step_ts = time.monotonic()   # step-loop heartbeat
         # chunk width: a power of two, so chunks tile the private cache
         self._chunk = 1 << (max(1, ce.prefill_chunk).bit_length() - 1)
         self._admitting: Optional[_Admission] = None
+        self.registry = registry if registry is not None \
+            else default_registry()
+        self.tracer = RequestTracer()
+        self._init_metrics()
+
+    def _init_metrics(self) -> None:
+        """The JAX engine's families (names and help strings) for the
+        ported subset; get-or-create, so engines can share a registry."""
+        m = self.registry
+        self._m_phase = m.histogram(
+            "bigdl_tpu_request_phase_seconds",
+            "Per-request phase latency (queue wait, prefill, decode).",
+            labelnames=("phase",))
+        for ph in ("queue", "prefill", "decode"):   # render from scrape 1
+            self._m_phase.labels(ph)
+        self._m_ttft = m.histogram(
+            "bigdl_tpu_ttft_seconds",
+            "Time to first token: arrival to first sampled token.")
+        self._m_tpot = m.histogram(
+            "bigdl_tpu_tpot_seconds",
+            "Time per output token: batched decode step wall time "
+            "(every active stream advances one token per step).")
+        self._m_occupancy = m.gauge(
+            "bigdl_tpu_slot_occupancy", "Active decode slots.")
+        self._m_queue_depth = m.gauge(
+            "bigdl_tpu_queue_depth",
+            "Requests waiting for admission (slot + CP lanes).")
+        self._m_admissions = m.counter(
+            "bigdl_tpu_admissions_total",
+            "Completed admissions (prefill finished, slot running).")
+        self._m_preemptions = m.counter(
+            "bigdl_tpu_preemptions_total",
+            "Sequences evicted to the queue by the starvation guard.")
+        self._m_stall_trips = m.counter(
+            "bigdl_tpu_stall_guard_trips_total",
+            "Times the stall guard reached preempt_after_steps.")
+        self._m_finished = m.counter(
+            "bigdl_tpu_requests_finished_total",
+            "Finished sequences by reason.", labelnames=("reason",))
+        self._m_steps = m.counter(
+            "bigdl_tpu_engine_steps_total",
+            "step() iterations that did work.")
+        self._m_tokens = m.counter(
+            "bigdl_tpu_tokens_generated_total",
+            "Tokens emitted to clients.")
 
     # -- public surface -------------------------------------------------------
 
     def add_request(self, request_id: str, prompt_token_ids,
                     params: Optional[SamplingParams] = None) -> None:
         params = params or SamplingParams()
-        ids = [int(t) for t in prompt_token_ids]
-        if not ids:
-            raise ValueError("empty prompt")
+        ids = list(prompt_token_ids)
         if len(ids) + 1 > self.cfg_engine.max_seq:
             raise ValueError(f"prompt length {len(ids)} exceeds engine "
                              f"max_seq {self.cfg_engine.max_seq}")
+        if not ids:
+            raise ValueError("empty prompt")
+        # client input is validated here (HTTP clients send raw ids): a
+        # float or a string is refused, never rounded or parsed into
+        # another prompt; bool passes, as an int
         v = self.cfg.vocab_size
-        if any(t < 0 or t >= v for t in ids):
+        if any(not isinstance(t, (int, np.integer)) or t < 0 or t >= v
+               for t in ids):
             raise ValueError(f"prompt token ids must be ints in [0, {v})")
+        if params.logprobs is not None and not 0 <= params.logprobs < v:
+            raise ValueError(f"logprobs must be in [0, {v})")
+        if params.n < 1:
+            raise ValueError("n must be >= 1")
         if params.max_tokens < 1:
             raise ValueError("max_tokens must be >= 1")
-        self._outputs[request_id] = []
-        self.waiting.append(Request(request_id, ids, params))
+        best_of = params.best_of or params.n
+        if best_of < params.n:
+            raise ValueError(f"best_of ({best_of}) < n ({params.n})")
+        ids = [int(t) for t in ids]
+        reqs = []
+        if best_of > 1:
+            # fan out into independent child sequences (seed + i each)
+            self._fanouts[request_id] = _Fanout(request_id, params.n,
+                                                best_of)
+            for i in range(best_of):
+                cid = f"{request_id}#{i}"
+                self._children[cid] = (request_id, i)
+                reqs.append(Request(cid, list(ids), dataclasses.replace(
+                    params, n=1, best_of=None,
+                    seed=None if params.seed is None else params.seed + i)))
+        else:
+            reqs.append(Request(request_id, ids, params))
+        for r in reqs:
+            self.tracer.start(r.request_id, prompt_len=len(ids),
+                              t_arrival=r.arrival)
+        with self._lock:
+            self._outputs[request_id] = []
+            self.waiting.extend(reqs)
+
+    def abort_request(self, request_id: str) -> None:
+        """Finish a request with reason "abort" wherever it is: queued,
+        mid-admission (its pages go back to the pool), decoding, or every
+        unfinished child of a fan-out. Takes effect at the next step."""
+        fo = self._fanouts.get(request_id)
+        if fo is not None:
+            for i in range(fo.best_of):
+                if i not in fo.scores:       # skip finished children
+                    self._abort.add(f"{request_id}#{i}")
+            return
+        self._abort.add(request_id)
+
+    def step_heartbeat_age(self) -> float:
+        """Seconds since the last step() entered. A driving loop calls
+        step() continuously, so a large age with unfinished work means the
+        step loop is wedged (the server's /health reads it)."""
+        return time.monotonic() - self._last_step_ts
 
     def has_unfinished(self) -> bool:
         return (len(self.waiting) > 0 or self._admitting is not None
@@ -301,22 +495,69 @@ class LLMEngine:
             self.radix.clear()
 
     def get_outputs(self, request_id: str) -> List[RequestOutput]:
-        out = self._outputs.get(request_id, [])
-        if any(o.finished for o in out):
-            self._outputs.pop(request_id, None)
-        elif out:
-            self._outputs[request_id] = []
+        with self._lock:
+            out = self._outputs.get(request_id, [])
+            if any(o.finished for o in out):
+                # request complete: drop the entry (unread finished
+                # entries of aborted streams must not accumulate)
+                self._outputs.pop(request_id, None)
+            elif out:
+                self._outputs[request_id] = []
         return out
+
+    def stats_snapshot(self) -> dict:
+        """JSON-ready engine state for ``GET /v1/stats``: occupancy, queue,
+        admission and stall state, paged pool state, metric summaries and
+        recent request spans. Reads host state only."""
+        return {
+            "slots": {"total": len(self.slots),
+                      "active": sum(1 for s in self.slots if s.active)},
+            "queue_depth": len(self.waiting),
+            "admitting": self._admitting is not None,
+            "stall_steps": self._stall_steps,
+            "engine_steps": self._step_idx,
+            "paged": self._paged_snapshot() if self._paged else None,
+            "metrics": self.registry.summary(),
+            "requests": self.tracer.snapshot(),
+        }
 
     @torch.no_grad()
     def step(self) -> bool:
-        """Advance admission by at most one prefill chunk, then run one
-        batched decode step. Returns True if any work was done."""
+        """Apply aborts and the stall guard, advance admission by at most
+        one prefill chunk, then run one batched decode step. Returns True
+        if any work was done."""
+        self._step_idx += 1
+        self._last_step_ts = time.monotonic()
+        for i, s in enumerate(self.slots):
+            if s.active and s.req.request_id in self._abort:
+                self._abort.discard(s.req.request_id)
+                self._finish(i, "abort")
+        if self._abort and self.waiting:
+            self._sweep_queued_aborts()
+        # stall guard: requests queued while every slot grinds a long
+        # generation eventually preempt the newest running sequence
+        ce = self.cfg_engine
+        if (ce.preempt_after_steps > 0 and self.waiting
+                and self._admitting is None
+                and all(s.active for s in self.slots)):
+            self._stall_steps += 1
+            if self._stall_steps >= ce.preempt_after_steps:
+                self._m_stall_trips.inc()
+                self._preempt()
+                self._stall_steps = 0
+        else:
+            self._stall_steps = 0
+
         self._admission_step()
         active = [i for i, s in enumerate(self.slots) if s.active]
         if not active:
-            return self._admitting is not None
-        b = self.cfg_engine.max_batch
+            did = self._admitting is not None
+            if did:
+                self._m_steps.inc()
+            self._update_gauges()
+            return did
+        t0 = time.perf_counter()
+        b = ce.max_batch
         tokens = torch.zeros((b,), dtype=torch.int64)
         for i in active:
             tokens[i] = self.slots[i].last_token
@@ -331,13 +572,35 @@ class LLMEngine:
         else:
             logits, self.cache = self.family.forward(self.params, self.cfg,
                                                      tokens, self.cache)
-        toks = self._sample(logits[:, -1, :], active)
+        lg = logits[:, -1, :]
+        simple = [i for i in active if self._simple(self.slots[i])]
+        complex_rows = [i for i in active if i not in simple]
+        toks: List[int] = []
+        if simple and all(self.slots[i].req.params.temperature <= 0.0
+                          for i in simple):
+            toks = torch.argmax(lg, dim=-1).tolist()
+        elif simple:
+            # every batch holding a simple slot samples it on the device,
+            # so a seeded stream does not depend on its neighbours
+            toks = sample_rows(lg, *self._sample_params(simple)).tolist()
+        host: Dict[int, np.ndarray] = {}
+        if complex_rows:
+            # one copy a step for every host-sampled row
+            rows = lg[complex_rows].cpu().numpy()
+            host = dict(zip(complex_rows, rows))
         for i in active:
             s = self.slots[i]
-            s.last_token = toks[i]
-            s.generated.append(toks[i])
-            self._emit(s)
+            if i in host:
+                tok, lp = self._sample_host(host[i], s)
+            else:
+                tok, lp = toks[i], None
+            s.last_token = tok
+            s.generated.append(tok)
+            self._emit(s, lp)
             self._check_done(i)
+        self._m_tpot.observe(time.perf_counter() - t0)
+        self._m_steps.inc()
+        self._update_gauges()
         return True
 
     def generate(self, prompts: List[List[int]],
@@ -365,14 +628,42 @@ class LLMEngine:
             b *= 2
         return min(b, self.cfg_engine.max_seq)
 
+    def _abort_queued(self, req: Request) -> None:
+        """A request aborted before its admission finished: the client is
+        owed a finished output or its poll loop never ends."""
+        self._abort.discard(req.request_id)
+        self._push_output(req.request_id, RequestOutput(
+            req.request_id, [], True, "abort"))
+        self._obs_finish(req.request_id, "abort")
+
+    def _sweep_queued_aborts(self) -> None:
+        """Aborted requests leave the queue now, not when they reach its
+        front."""
+        with self._lock:
+            gone = [r for r in self.waiting if r.request_id in self._abort]
+            if gone:
+                keep = [r for r in self.waiting
+                        if r.request_id not in self._abort]
+                self.waiting.clear()
+                self.waiting.extend(keep)
+        for r in gone:
+            self._abort_queued(r)
+
     def _admission_step(self) -> None:
         a = self._admitting
         if a is None:
             free = next((i for i, s in enumerate(self.slots)
                          if not s.active), None)
-            if free is None or not self.waiting:
+            if free is None:
                 return
-            req = self.waiting.popleft()
+            req = None
+            while req is None and self.waiting:
+                req = self.waiting.popleft()
+                if req.request_id in self._abort:
+                    self._abort_queued(req)
+                    req = None
+            if req is None:
+                return
             # the private cache is a chunk multiple >= the bucket, so no
             # chunk write straddles its end; _insert clips to max_seq
             bucket = self._bucket(len(req.prompt_token_ids))
@@ -392,7 +683,14 @@ class LLMEngine:
                 self._seed_pages(cache1, shared, consumed)
             a = self._admitting = _Admission(req, free, consumed, cache1,
                                              chunk, shared, new)
+            self.tracer.admitted(req.request_id)
 
+        if a.req.request_id in self._abort:
+            # aborted mid-admission: the reserved pages go back first
+            self._release_admission_pages(a)
+            self._admitting = None
+            self._abort_queued(a.req)
+            return
         plen = len(a.req.prompt_token_ids)
         part = a.req.prompt_token_ids[a.consumed:a.consumed + a.chunk]
         padded = torch.zeros((1, a.chunk), dtype=torch.int64)
@@ -417,15 +715,14 @@ class LLMEngine:
             self._insert(a.cache1, a.slot_idx, plen)
         s = self.slots[a.slot_idx]
         s.req = a.req
-        p = a.req.params
-        s.seed = (int(p.seed) & 0x7FFFFFFF if p.seed is not None
-                  else int(np.random.default_rng().integers(1 << 31)))
         s.generated = []
-        first = self._sample_one(logits[:, plen - 1 - start], s, pos=0)
+        self._setup_slot_sampler(s)
+        first, lp = self._sample_admission(logits[:, plen - 1 - start], s)
         s.generated = [first]
         s.last_token = first
         s.active = True
-        self._emit(s)
+        self._obs_admission_complete(a.req.request_id)
+        self._emit(s, lp)
         self._check_done(a.slot_idx)
         self._admitting = None
 
@@ -443,6 +740,7 @@ class LLMEngine:
         for dst, src in zip(self._planes(self.cache), self._planes(cache1)):
             dst[:, slot, :n] = src[:, 0, :n]
         self.cache.pos[slot] = plen
+
 
     # -- paged KV bookkeeping (kv_page_size > 0) ----------------------------
 
@@ -623,62 +921,312 @@ class LLMEngine:
             d["radix"] = self.radix.snapshot()
         return d
 
-    def _sample_params(self, rows):
-        b = len(rows)
+
+    # -- samplers -------------------------------------------------------------
+
+    @staticmethod
+    def _simple(s: _Slot) -> bool:
+        """No penalty counts and no logprobs: the device sampler covers it
+        (any temperature / top-k / top-p / seed)."""
+        return s.counts is None and s.n_logprobs < 0
+
+    def _setup_slot_sampler(self, s: _Slot) -> None:
+        """Per-request sampler state at admission: penalty counts over the
+        prompt, the host generator, the device stream's seed, and whether
+        logprobs are tracked (asked for, or needed to rank best_of)."""
+        p = s.req.params
+        # unseeded: one persistent host stream; seeded: re-derived per
+        # token from (seed, absolute position) in _sample_host, so a
+        # preempt-resume replays an uninterrupted run
+        s.rng = np.random.default_rng() if p.seed is None else None
+        s.dev_seed = (int(p.seed) & 0x7FFFFFFF if p.seed is not None
+                      else int(np.random.default_rng().integers(1 << 31)))
+        s.cum_logprob = s.req.resumed_cum_logprob
+        # rank scores are read only when best_of oversamples (> n)
+        link = self._children.get(s.req.request_id)
+        need_rank = False
+        if link is not None:
+            fo = self._fanouts.get(link[0])
+            need_rank = fo is not None and fo.best_of > fo.n
+        s.n_logprobs = (-1 if p.logprobs is None and not need_rank
+                        else (p.logprobs or 0))
+        if p.needs_counts:
+            v = self.cfg.vocab_size
+            s.counts = np.zeros((v,), np.int32)
+            np.add.at(s.counts, np.asarray(s.req.prompt_token_ids,
+                                           np.int64), 1)
+            s.counts_out = np.zeros((v,), np.int32)
+            if s.req.generated_offset:
+                # preempt-resume: the prompt's tail is earlier output
+                np.add.at(s.counts_out, np.asarray(
+                    s.req.prompt_token_ids[-s.req.generated_offset:],
+                    np.int64), 1)
+        else:
+            s.counts = None
+            s.counts_out = None
+
+    def _sample_params(self, idxs: List[int]):
+        """The device sampler's per-row inputs over all max_batch rows;
+        rows outside `idxs` are greedy. A row's position is its absolute
+        output position (generated_offset + generated), so a seeded stream
+        survives preemption."""
+        b = self.cfg_engine.max_batch
         temps = torch.zeros((b,), dtype=torch.float32)
         top_ks = torch.zeros((b,), dtype=torch.int64)
         top_ps = torch.ones((b,), dtype=torch.float32)
         seeds, poss = [0] * b, [0] * b
-        for j, s in enumerate(rows):
-            if s is None:
-                continue
+        for i in idxs:
+            s = self.slots[i]
             p = s.req.params
-            temps[j], top_ks[j], top_ps[j] = p.temperature, p.top_k, p.top_p
-            seeds[j] = s.seed
-            poss[j] = len(s.generated)
+            temps[i], top_ks[i], top_ps[i] = p.temperature, p.top_k, p.top_p
+            seeds[i] = s.dev_seed
+            poss[i] = s.req.generated_offset + len(s.generated)
         dev = self.device
         return temps.to(dev), top_ks.to(dev), top_ps.to(dev), seeds, poss
 
-    def _sample(self, lg: torch.Tensor, active: List[int]) -> List[int]:
-        rows = [self.slots[i] if i in active else None
-                for i in range(len(self.slots))]
-        if all(self.slots[i].req.params.temperature <= 0.0 for i in active):
-            return torch.argmax(lg, dim=-1).tolist()
-        temps, top_ks, top_ps, seeds, poss = self._sample_params(rows)
-        return sample_rows(lg, temps, top_ks, top_ps, seeds, poss).tolist()
+    def _sample_admission(self, lg: torch.Tensor, s: _Slot
+                          ) -> Tuple[int, Optional[LogprobEntry]]:
+        """First token after an admission prefill (lg [1, V] on the
+        device). A simple slot draws from the same device stream as its
+        decode steps, at position generated_offset."""
+        if self._simple(s):
+            p = s.req.params
+            dev = self.device
+            tok = sample_rows(
+                lg, torch.tensor([p.temperature], device=dev),
+                torch.tensor([p.top_k], device=dev),
+                torch.tensor([p.top_p], device=dev), [s.dev_seed],
+                [s.req.generated_offset])
+            return int(tok[0]), None
+        return self._sample_host(lg[0].cpu().numpy(), s)
 
-    def _sample_one(self, lg: torch.Tensor, s: _Slot, pos: int) -> int:
-        temps, top_ks, top_ps, seeds, poss = self._sample_params([s])
-        poss[0] = pos
-        return int(sample_rows(lg, temps, top_ks, top_ps, seeds, poss)[0])
+    def _sample_host(self, logits: np.ndarray, s: _Slot
+                     ) -> Tuple[int, Optional[LogprobEntry]]:
+        """Sample one token for a slot on the host (the JAX engine's
+        ``_sample_host``): penalties -> (logprobs) -> temperature / top-k /
+        top-p, on float64 logits."""
+        p = s.req.params
+        lg = np.asarray(logits, np.float64)
+        if s.counts is not None:
+            if p.repetition_penalty != 1.0:
+                pen = np.where(lg > 0, lg / p.repetition_penalty,
+                               lg * p.repetition_penalty)
+                lg = np.where(s.counts > 0, pen, lg)
+            if p.frequency_penalty != 0.0 or p.presence_penalty != 0.0:
+                # output-token counts only (count-penalty semantics)
+                lg = (lg - s.counts_out * p.frequency_penalty
+                      - (s.counts_out > 0) * p.presence_penalty)
 
-    def _emit(self, s: _Slot) -> None:
-        self._outputs.setdefault(s.req.request_id, []).append(
-            RequestOutput(s.req.request_id, [s.last_token], False))
+        entry = None
+        if s.n_logprobs >= 0:
+            # the distribution after penalties, before temperature (also
+            # the best_of rank score)
+            ls = lg - (np.max(lg) + np.log(
+                np.sum(np.exp(lg - np.max(lg)))))
+        if p.temperature <= 0.0:
+            tok = int(np.argmax(lg))
+        else:
+            t = lg / p.temperature
+            if p.top_k > 0:
+                kth = np.sort(t)[-p.top_k]
+                t = np.where(t < kth, -np.inf, t)
+            if p.top_p < 1.0:
+                order = np.argsort(t)[::-1]
+                probs = np.exp(t[order] - np.max(t))
+                probs /= probs.sum()
+                cum = np.cumsum(probs)
+                cut = int(np.searchsorted(cum, p.top_p)) + 1
+                mask = np.full_like(t, -np.inf)
+                mask[order[:cut]] = t[order[:cut]]
+                t = mask
+            probs = np.exp(t - np.max(t[np.isfinite(t)]))
+            probs = np.where(np.isfinite(t), probs, 0.0)
+            probs /= probs.sum()
+            if s.rng is not None:
+                rng = s.rng
+            else:
+                # stateless seeded draw keyed by absolute token position
+                pos = s.req.generated_offset + len(s.generated)
+                rng = np.random.default_rng((p.seed, pos))
+            tok = int(rng.choice(len(probs), p=probs))
+
+        if s.n_logprobs >= 0:
+            s.cum_logprob += float(ls[tok])
+            top: List[Tuple[int, float]] = []
+            if s.n_logprobs > 0:
+                idx = np.argpartition(ls, -s.n_logprobs)[-s.n_logprobs:]
+                idx = idx[np.argsort(ls[idx])[::-1]]
+                top = [(int(i), float(ls[i])) for i in idx]
+            entry = LogprobEntry(tok, float(ls[tok]), top)
+        if s.counts is not None:
+            s.counts[tok] += 1
+            s.counts_out[tok] += 1
+        return tok, entry
+
+    # -- outputs, finishing, preemption --------------------------------------
+
+    def _push_output(self, rid: str, out: RequestOutput,
+                     score: Optional[float] = None,
+                     length: int = 0) -> None:
+        """Deliver an output, routing n / best_of children to their
+        parent. Streaming children (best_of == n) pass through with their
+        choice index; their finishes are demoted to finished=False (a
+        choice ending is not the request ending) and one synthetic
+        finished output closes the parent when the last child lands.
+        Oversampled children (best_of > n) are buffered until every
+        candidate finishes, then the n best by mean logprob are emitted as
+        choices 0..n-1."""
+        link = self._children.get(rid)
+        if link is None:
+            with self._lock:
+                self._outputs.setdefault(rid, []).append(out)
+            return
+        pid, idx = link
+        fo = self._fanouts[pid]
+        out = dataclasses.replace(out, request_id=pid, index=idx)
+        stream = fo.best_of == fo.n
+        if out.finished:
+            fo.done += 1
+            fo.scores[idx] = score if score is not None else -np.inf
+            fo.lengths[idx] = length
+            if stream:
+                out = dataclasses.replace(out, finished=False)
+        if stream:
+            with self._lock:
+                self._outputs.setdefault(pid, []).append(out)
+        else:
+            fo.buffered.setdefault(idx, []).append(out)
+        if fo.done == fo.best_of:
+            self._finish_fanout(fo)
+
+    def _finish_fanout(self, fo: _Fanout) -> None:
+        outs: List[RequestOutput] = []
+        if fo.best_of > fo.n:
+            mean = {i: fo.scores[i] / max(fo.lengths.get(i, 1), 1)
+                    for i in fo.scores}
+            ranked = sorted(mean, key=lambda i: mean[i], reverse=True)
+            for new_idx, child_idx in enumerate(ranked[:fo.n]):
+                for o in fo.buffered.get(child_idx, []):
+                    # only the closer below finishes the parent
+                    outs.append(dataclasses.replace(
+                        o, index=new_idx, finished=False))
+        # the closer carries no finish_reason: the choices' own reasons
+        # were delivered already, and one here would overwrite choice 0's
+        outs.append(RequestOutput(fo.parent_id, [], True, None))
+        with self._lock:
+            self._outputs.setdefault(fo.parent_id, []).extend(outs)
+        for i in range(fo.best_of):
+            self._children.pop(f"{fo.parent_id}#{i}", None)
+            self._abort.discard(f"{fo.parent_id}#{i}")
+        self._fanouts.pop(fo.parent_id, None)
+
+    def _emit(self, s: _Slot, lp: Optional[LogprobEntry] = None) -> None:
+        want_lp = s.req.params.logprobs is not None and lp is not None
+        self._push_output(
+            s.req.request_id,
+            RequestOutput(s.req.request_id, [s.last_token], False,
+                          logprobs=[lp] if want_lp else None))
+        self._m_tokens.inc()
 
     def _check_done(self, idx: int) -> bool:
         s = self.slots[idx]
         p = s.req.params
         tok = s.last_token
         reason = None
-        if self.eos_token_id is not None and tok == self.eos_token_id:
+        if (not p.ignore_eos and self.eos_token_id is not None
+                and tok == self.eos_token_id):
             reason = "stop"
         elif tok in p.stop_token_ids:
             reason = "stop"
-        elif len(s.generated) >= p.max_tokens:
+        elif s.req.generated_offset + len(s.generated) >= p.max_tokens:
             reason = "length"
         elif (len(s.req.prompt_token_ids) + len(s.generated) + 1
               >= self.cfg_engine.max_seq):
             reason = "length"
         if reason is None:
             return False
-        self._outputs.setdefault(s.req.request_id, []).append(
-            RequestOutput(s.req.request_id, [], True, reason))
+        self._finish(idx, reason)
+        return True
+
+    def _finish(self, idx: int, reason: str) -> None:
+        s = self.slots[idx]
+        if s.req is None:
+            return
+        gen_len = s.req.generated_offset + len(s.generated)
+        if reason == "abort" and self.radix is not None:
+            # a cancelled client's prompt pages are dead weight
+            self.radix.drop(s.req.prompt_token_ids)
+        self._push_output(
+            s.req.request_id,
+            RequestOutput(s.req.request_id, [], True, reason),
+            score=s.cum_logprob, length=gen_len)
+        self._obs_finish(s.req.request_id, reason, n_generated=gen_len)
+        self._reset_slot(idx)
+
+    def _reset_slot(self, idx: int) -> None:
+        """Empty a slot: release its pages (paged) and reset its position
+        so the idle row stops deepening."""
+        s = self.slots[idx]
         s.req = None
         s.active = False
         s.generated = []
-        # release the slot's pages (paged) and reset the idle row's
-        # position so it stops deepening
+        s.counts = None
+        s.counts_out = None
         self._release_slot_pages(idx)
         self.cache.pos[idx] = 0
-        return True
+
+    def _preempt(self) -> None:
+        """Starvation relief: evict the latest-arrived running sequence by
+        recompute. Its tokens so far become the prompt of a resumed
+        request at the back of the queue, so the starved requests admit
+        into the freed slot first. Nothing already streamed is emitted
+        again."""
+        victim = max((i for i, s in enumerate(self.slots) if s.active),
+                     key=lambda i: self.slots[i].req.arrival, default=None)
+        if victim is None:
+            return
+        s = self.slots[victim]
+        req = s.req
+        resumed = dataclasses.replace(
+            req,
+            prompt_token_ids=list(req.prompt_token_ids) + list(s.generated),
+            generated_offset=req.generated_offset + len(s.generated),
+            resumed_cum_logprob=s.cum_logprob)
+        self._reset_slot(victim)
+        with self._lock:
+            self.waiting.append(resumed)
+        self._m_preemptions.inc()
+        self.tracer.preempted(resumed.request_id)
+
+    # -- observability --------------------------------------------------------
+
+    def _obs_admission_complete(self, rid: str) -> None:
+        """First token of an admission sampled: the queue and prefill
+        phases close, and TTFT is recorded (first admission only: a
+        preempt-resume streamed its first token already)."""
+        span = self.tracer.get(rid)
+        now = time.time()
+        just_first = span is not None and span.t_first_token is None
+        if span is not None and span.t_admitted is not None:
+            qw = span.queue_wait_s
+            if qw is not None and qw >= 0:
+                self._m_phase.labels("queue").observe(qw)
+            self._m_phase.labels("prefill").observe(
+                max(now - span.t_admitted, 0.0))
+        self.tracer.first_token(rid)
+        if just_first and span.ttft_s is not None:
+            self._m_ttft.observe(span.ttft_s)
+        self._m_admissions.inc()
+
+    def _obs_finish(self, rid: str, reason: str,
+                    n_generated: int = 0) -> None:
+        span = self.tracer.finish(rid, reason, n_generated=n_generated)
+        if span is not None:
+            d = span.decode_s
+            if d is not None and d >= 0:
+                self._m_phase.labels("decode").observe(d)
+        self._m_finished.labels(reason).inc()
+
+    def _update_gauges(self) -> None:
+        self._m_occupancy.set(sum(1 for s in self.slots if s.active))
+        self._m_queue_depth.set(len(self.waiting))

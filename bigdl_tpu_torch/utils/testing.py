@@ -184,3 +184,14 @@ class SyntheticCausalLM:
         self.config = cfg
         self.hf_config = {"eos_token_id": eos_token_id}
         self.family = family
+
+
+def tiny_random_model(seed: int = 0, qtype: Optional[str] = "sym_int4",
+                      cfg: Optional[LlamaConfig] = None,
+                      device="cuda") -> SyntheticCausalLM:
+    """A tiny random llama (``TINY_LLAMA`` unless `cfg` is given) ready for
+    ``LLMEngine`` / ``OpenAIServer``: the ``api_server --tiny-random``
+    mode. One seed gives the same weights in every process."""
+    cfg = cfg or TINY_LLAMA
+    return SyntheticCausalLM(
+        random_llama_params(cfg, qtype=qtype, seed=seed, device=device), cfg)

@@ -53,6 +53,21 @@ Phases, all of them on every run, each printing one JSON line:
    of the same requests profiles a few pure-decode steps (device time by
    kernel group, launches, idle share; one B3 kernel a B3 call and at
    most one small-M kernel a B1 call, of any body).
+5a. server: the engine phase's eight requests through the port's
+   ``OpenAIServer`` (``serving/api_server.py``) on 127.0.0.1, port 0, over
+   a fresh slab engine (max_batch 8, max_seq 2048), each request from a
+   client thread of its own and all sent at once, first non-streamed, then
+   streamed (SSE): every stream must equal the engine phase's token for
+   token. Then a logprobs=5 greedy request (the same tokens; top-1 logprob
+   the chosen token's), an n=2 seeded request (two choices), a
+   repetition_penalty=1.8 request twice (it repeats), a client that drops
+   mid-stream (the engine aborts it and goes idle), /metrics (every ported
+   family) and /v1/stats; the engine loop must raise nothing, and B1-B4
+   must launch. A second server over the paged engine (kv_page_size 128,
+   sharing on) serves the four shared-prefix requests of phase 6 at once:
+   streams equal the slab engine's, 3 radix hits, B5 launches. Client
+   latencies and TTFT (streamed) and the server engine's pure-decode step
+   time are printed beside the engine phase's.
 5b. prefill_profile: torch.profiler over one prefill of a 100-token
    prompt (B2 takes its linears) through a fresh engine, after a warm-up
    prefill: device time by kernel group, idle share, launches. Phase 15b
@@ -1549,8 +1564,307 @@ def phase_engine(params, cfg, max_new=32):
             f"{missing}")
     shared = _shared_prefix_requests(cfg, max_new)
     toks3, _, _, _ = _run_requests(eng, shared)
-    return counts, toks1, toks3, res["max_memory_allocated"]
+    return (counts, toks1, toks3, res["max_memory_allocated"],
+            res["decode_step_ms"])
 
+
+SERVER_FAMILIES = (
+    "bigdl_tpu_request_phase_seconds", "bigdl_tpu_ttft_seconds",
+    "bigdl_tpu_tpot_seconds", "bigdl_tpu_slot_occupancy",
+    "bigdl_tpu_queue_depth", "bigdl_tpu_admissions_total",
+    "bigdl_tpu_preemptions_total", "bigdl_tpu_stall_guard_trips_total",
+    "bigdl_tpu_requests_finished_total", "bigdl_tpu_engine_steps_total",
+    "bigdl_tpu_tokens_generated_total", "bigdl_tpu_requests_cancelled_total")
+
+
+class _Served:
+    """An ``OpenAIServer`` over a fresh engine on 127.0.0.1, port 0, with
+    the engine's pure-decode steps timed on its loop thread (a step with
+    no admission pending and nothing queued, as ``_run_requests`` times
+    them in the engine phases)."""
+
+    def __init__(self, model, ecfg):
+        from bigdl_tpu_torch.observability.metrics import MetricsRegistry
+        from bigdl_tpu_torch.serving.api_server import OpenAIServer
+        from bigdl_tpu_torch.serving.engine import LLMEngine
+
+        self.engine = eng = LLMEngine(model, ecfg, device="cuda",
+                                      registry=MetricsRegistry())
+        self.decode = []                 # (active slots, seconds)
+        step = eng.step
+
+        def timed():
+            pure = eng._admitting is None and not eng.waiting
+            n = sum(s.active for s in eng.slots)
+            t0 = time.perf_counter()
+            did = step()
+            if pure and n and did:
+                self.decode.append((n, time.perf_counter() - t0))
+            return did
+
+        eng.step = timed
+        self.server = OpenAIServer(eng)
+        httpd = self.server.serve(host="127.0.0.1", port=0, background=True)
+        self.base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def get(self, path):
+        import urllib.request
+
+        with urllib.request.urlopen(self.base + path, timeout=120) as r:
+            return r.status, r.read()
+
+    def post(self, body, stream=False):
+        """A completion: (ids, finish reason or None, seconds to the first
+        streamed delta or None, seconds to the end, the response)."""
+        import urllib.request
+
+        req = urllib.request.Request(
+            self.base + "/v1/completions",
+            data=json.dumps(dict(body, stream=stream)).encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            if not stream:
+                out = json.loads(r.read())
+                return ([int(t) for t in out["choices"][0]["text"].split()],
+                        out["choices"][0]["finish_reason"], None,
+                        time.perf_counter() - t0, out)
+            first, text, lines = None, [], []
+            for line in r:
+                line = line.strip()
+                if not line.startswith(b"data: "):
+                    continue
+                lines.append(line)
+                if line == b"data: [DONE]":
+                    continue
+                if first is None:
+                    first = time.perf_counter() - t0
+                text.append(json.loads(line[6:])["choices"][0]["text"])
+        require(lines and lines[-1] == b"data: [DONE]",
+                "server: a stream did not end in data: [DONE]")
+        return ([int(t) for t in "".join(text).split()], None, first,
+                time.perf_counter() - t0, None)
+
+    def concurrent(self, bodies, stream=False):
+        """Each body from a client thread of its own, all sent at once."""
+        import threading
+
+        out = [None] * len(bodies)
+        gate = threading.Barrier(len(bodies))
+
+        def client(i):
+            gate.wait()
+            try:
+                out[i] = self.post(bodies[i], stream)
+            except Exception as e:       # checked below, on this thread
+                out[i] = e
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        bad = [o for o in out if isinstance(o, Exception)]
+        require(not bad, f"server: a client failed: {bad[:1]}")
+        return out
+
+    def decode_perf(self):
+        steps, self.decode = self.decode, []
+        s = sum(dt for _, dt in steps)
+        return {"decode_steps": len(steps),
+                "decode_step_ms": 1e3 * s / len(steps) if steps else None,
+                "decode_tokens_per_s": (sum(n for n, _ in steps) / s
+                                        if s else None)}
+
+    def close(self):
+        self.server.shutdown()
+
+
+def _body(prompt, sp, **kw):
+    return dict({"prompt": prompt, "max_tokens": sp.max_tokens,
+                 "temperature": sp.temperature, "top_k": sp.top_k,
+                 "top_p": sp.top_p, "seed": sp.seed}, **kw)
+
+
+def _drop_mid_stream(srv, prompt, max_tokens):
+    """A streamed request whose client hangs up after the first delta:
+    the engine must abort it. Returns the seconds until it was idle."""
+    import socket
+
+    host, port = srv.base[len("http://"):].split(":")
+    body = json.dumps({"prompt": prompt, "stream": True, "ignore_eos": True,
+                       "max_tokens": max_tokens}).encode()
+    s = socket.create_connection((host, int(port)), timeout=120)
+    s.sendall(b"POST /v1/completions HTTP/1.1\r\nHost: x\r\n"
+              b"Content-Type: application/json\r\n"
+              + f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+    got = b""
+    while b"data: " not in got:
+        chunk = s.recv(4096)
+        require(bool(chunk), "server: the dropped stream closed early")
+        got += chunk
+    s.close()
+    t0 = time.perf_counter()
+    while srv.engine.has_unfinished():
+        require(time.perf_counter() - t0 < 120,
+                "server: a dropped client's request was not aborted")
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+def phase_server(params, cfg, slab_toks, slab_shared, engine_step_ms, card,
+                 max_new=32):
+    """The engine phase's eight requests through ``OpenAIServer`` (max_batch
+    8, max_seq 2048), each from a client thread of its own, sent at once:
+    non-streamed, then streamed; every stream must equal the engine
+    phase's. Then logprobs, n=2, a repetition penalty, a client that drops
+    mid-stream, /metrics and /v1/stats; B1-B4 must launch. A second server
+    over the paged engine (kv_page_size 128, sharing on) serves the four
+    shared-prefix requests: streams equal the slab engine's, B5 launches.
+    Counts are reset before each server's traffic and read after it."""
+    from bigdl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from bigdl_tpu_torch.serving.engine import EngineConfig
+    from bigdl_tpu_torch.utils.testing import SyntheticCausalLM
+
+    model = SyntheticCausalLM(params, cfg)
+    _, requests = _engine_requests(cfg, max_new)
+    total = {}
+    res = {"phase": "server", "model": "llama2-7b", "qtype": "sym_int4",
+           "requests": len(requests), "max_new_tokens": max_new,
+           "card": card, "engine_phase_decode_step_ms": engine_step_ms}
+    srv = _Served(model, EngineConfig(max_batch=8, max_seq=2048))
+    try:
+        reset_launch_counts()
+        bodies = [_body(p, sp) for _, p, sp in requests]
+        t0 = time.perf_counter()
+        plain = srv.concurrent(bodies)
+        res["nonstream"] = {
+            "wall_s": time.perf_counter() - t0,
+            "latency_s": [o[3] for o in plain], **srv.decode_perf()}
+        t0 = time.perf_counter()
+        streamed = srv.concurrent(bodies, stream=True)
+        res["stream"] = {
+            "wall_s": time.perf_counter() - t0,
+            "ttft_s": [o[2] for o in streamed],
+            "latency_s": [o[3] for o in streamed], **srv.decode_perf()}
+        same = {r: (plain[i][0] == slab_toks[r], streamed[i][0]
+                    == slab_toks[r]) for i, (r, _, _) in enumerate(requests)}
+        res["equal_to_engine"] = same
+        require(all(o[1] == "length" for o in plain),
+                f"server: finish reasons {[o[1] for o in plain]}")
+        require(all(a and b for a, b in same.values()),
+                f"server: streams differ from the engine phase's: {same}")
+
+        r0, p0, sp0 = requests[0]
+        ids, _, _, _, out = srv.post(_body(p0, sp0, max_tokens=8,
+                                           logprobs=5))
+        lp = out["choices"][0]["logprobs"]
+        top1 = [max(d.values()) for d in lp["top_logprobs"]]
+        res["logprobs"] = {"ids_equal": ids == slab_toks[r0][:8],
+                           "top1_minus_chosen": [
+                               a - b for a, b in
+                               zip(top1, lp["token_logprobs"])]}
+        require(ids == slab_toks[r0][:8], "server: logprobs changed tokens")
+        require(top1 == lp["token_logprobs"] and all(
+            len(d) == 5 for d in lp["top_logprobs"]),
+            "server: top-1 logprob is not the chosen token's")
+
+        _, p5, sp5 = requests[5]
+        _, _, _, _, out = srv.post(_body(p5, sp5, max_tokens=8, n=2))
+        lens = [len(c["text"].split()) for c in out["choices"]]
+        res["n2"] = {"choices": [c["index"] for c in out["choices"]],
+                     "tokens": lens}
+        require([c["index"] for c in out["choices"]] == [0, 1]
+                and lens == [8, 8], f"server: n=2 gave {res['n2']}")
+
+        _, p1, sp1 = requests[1]
+        pen = [srv.post(_body(p1, sp1, max_tokens=16,
+                              repetition_penalty=1.8)) for _ in range(2)]
+        res["repetition_penalty"] = {
+            "repeat": pen[0][0] == pen[1][0],
+            "finish": [o[1] for o in pen],
+            "differs_from_unpenalized": pen[0][0] != slab_toks["r1"][:16]}
+        require(pen[0][0] == pen[1][0] and len(pen[0][0]) == 16,
+                "server: a penalized request did not repeat")
+
+        cancelled = srv.server._cancelled.labels("stream")
+        before = cancelled.value
+        res["dropped_client_idle_s"] = _drop_mid_stream(srv, p0, 512)
+        recent = srv.engine.stats_snapshot()["requests"]["recent"]
+        res["dropped_client"] = {
+            "finish_reason": recent[-1]["finish_reason"],
+            "n_generated": recent[-1]["n_generated"],
+            "cancelled": cancelled.value - before}
+        require(recent[-1]["finish_reason"] == "abort"
+                and cancelled.value == before + 1,
+                f"server: dropped client {res['dropped_client']}")
+
+        code, text = srv.get("/metrics")
+        text = text.decode()
+        missing = [f for f in SERVER_FAMILIES if f"# TYPE {f} " not in text]
+        code2, stats = srv.get("/v1/stats")
+        stats = json.loads(stats)
+        summ = stats["metrics"]
+        res["metrics"] = {
+            k: summ.get(k) for k in (
+                "bigdl_tpu_ttft_seconds", "bigdl_tpu_tpot_seconds",
+                "bigdl_tpu_engine_steps_total",
+                "bigdl_tpu_tokens_generated_total",
+                'bigdl_tpu_requests_finished_total{reason="abort"}',
+                'bigdl_tpu_requests_finished_total{reason="length"}')}
+        res["loop_errors"] = srv.server.loop.errors
+        require(code == code2 == 200 and not missing,
+                f"server: /metrics lacks {missing}")
+        require(stats["loop_errors"] == 0 and srv.server.loop.errors == 0,
+                f"server: the engine loop raised: {srv.server.loop.last_error}")
+        counts = launch_counts()
+        res["launches"] = counts
+        missing = [k for k in ("dequant_gemv", "dequant_gemm",
+                               "decode_attention", "prefill_attention")
+                   if counts[k] <= 0]
+        require(not missing, f"server: kernels never launched: {missing}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    finally:
+        srv.close()
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    shared = _shared_prefix_requests(cfg, max_new)
+    srv = _Served(model, EngineConfig(max_batch=8, max_seq=2048,
+                                      kv_page_size=128,
+                                      prefix_sharing="on"))
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = srv.concurrent([_body(p, sp) for _, p, sp in shared])
+        counts = launch_counts()
+        snap = srv.engine._paged_snapshot()
+        same = {r: outs[i][0] == slab_shared[r]
+                for i, (r, _, _) in enumerate(shared)}
+        res["paged_shared_prefix"] = {
+            "wall_s": time.perf_counter() - t0,
+            "latency_s": [o[3] for o in outs], **srv.decode_perf(),
+            "equal_to_slab": same, "radix_hits": snap["radix"]["hits"],
+            "launches": counts, "loop_errors": srv.server.loop.errors}
+        require(all(same.values()), f"server (paged): streams differ from "
+                f"the slab engine's: {same}")
+        require(counts["paged_decode_attention"] > 0,
+                "server (paged): paged decode attention never launched")
+        require(srv.server.loop.errors == 0,
+                f"server (paged): the engine loop raised: "
+                f"{srv.server.loop.last_error}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    finally:
+        srv.close()
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(res)
+    return total
 
 def phase_engine_paged(params, cfg, slab_toks, slab_shared, max_new=32):
     """The engine phase's requests through the paged engine (sharing
@@ -2763,9 +3077,12 @@ def main() -> int:
               "build_s": time.perf_counter() - t0,
               "memory_allocated": torch.cuda.memory_allocated()})
         phase_reference(params, cfg)
-        counts, slab_toks, slab_shared, slab_peak = phase_engine(params, cfg)
+        counts, slab_toks, slab_shared, slab_peak, step_ms = phase_engine(
+            params, cfg)
         # main-path launches: each path's run, counted from 0
-        more = [phase_prefill_profile(params, cfg, None, "llama2-7b", 100),
+        more = [phase_server(params, cfg, slab_toks, slab_shared, step_ms,
+                             card),
+                phase_prefill_profile(params, cfg, None, "llama2-7b", 100),
                 phase_engine_paged(params, cfg, slab_toks, slab_shared),
                 phase_prefix_burst(params, cfg)]
         for kind in ("int8", "int4"):
