@@ -110,6 +110,26 @@ def resolve_prepack(spec) -> str:
     return _tristate(spec, "prepack")
 
 
+def resolve_decode_resident(spec) -> str:
+    """Normalize a BIGDL_TPU_TORCH_DECODE_RESIDENT spec to "auto" | "on" |
+    "off" (``resolve_decode_resident`` of the JAX package)."""
+    s = str(spec).strip().lower() if spec is not None else "auto"
+    s = {"1": "on", "true": "on", "0": "off", "false": "off",
+         "": "auto"}.get(s, s)
+    if s not in _TRISTATE:
+        raise ValueError(
+            f"unknown decode_resident mode {spec!r}; "
+            f"choose from {_TRISTATE}")
+    return s
+
+
+def decode_resident_enabled() -> bool:
+    """Effective resident-decode switch: "off" disables, "on"/"auto"
+    enable (the per-step gate, penalties and logprob rows among it, lives
+    at the call sites, which keep the eager step for host-side work)."""
+    return flags().decode_resident != "off"
+
+
 def resolve_matmul_gemv(spec) -> str:
     s = str(spec).strip().lower() if spec is not None else "auto"
     if s not in MATMUL_GEMV_MODES:
@@ -130,6 +150,7 @@ class Flags:
     matmul_gemv: str = "auto"
     prepack: str = "auto"
     mxu_layout: str = "auto"
+    decode_resident: str = "auto"
 
 
 def flags() -> Flags:
@@ -161,4 +182,6 @@ def flags() -> Flags:
             env("BIGDL_TPU_TORCH_MATMUL_GEMV", "auto")),
         prepack=resolve_prepack(env("BIGDL_TPU_TORCH_PREPACK", "auto")),
         mxu_layout=_tristate(env("BIGDL_TPU_TORCH_MXU_LAYOUT", "auto"),
-                             "mxu_layout"))
+                             "mxu_layout"),
+        decode_resident=resolve_decode_resident(
+            env("BIGDL_TPU_TORCH_DECODE_RESIDENT", "auto")))

@@ -15,23 +15,49 @@ Where the JAX package's jitted code divides by a constant (temperature,
 repetition penalty), XLA multiplies by the constant's f32 reciprocal; the
 port does the same, so the quotients are bit-identical.
 
-Not ported: the resident one-dispatch step (ROADMAP A7-resident) and
-``generate_on_device`` (with it), beam search (A12), fault hooks (A16)
-and multimodal prefill (``visual``, A13); each raises naming its item.
+The resident step (``step_resident`` of the JAX ``Generator``): when
+``BIGDL_TPU_TORCH_DECODE_RESIDENT`` is not ``off`` and the generation has
+no penalties and no ``check_logits``, each decode step is one function
+(forward, sampling under the step's subkey, the EOS mask) over static
+buffers, captured as a CUDA graph on the card and replayed once a step.
+The key chain stays on the host; each step's subkey is copied into a
+static device buffer before the replay, so sampled bits do not change.
+The Generator keeps the KV caches of its last two batch sizes, with
+graphs for the last two sampling settings (and EOS) over each, and lends
+a kept cache to one call at a time: a second call in flight at the same
+batch size gets a cache and a graph of its own for that call.
+``generate_on_device`` (the JAX package's whole loop as one program)
+prefills eagerly and then
+replays one captured step ``max_new_tokens - 1`` times into a device
+[B, T] buffer, its subkeys precomputed into a device tensor that a
+device-side step counter indexes; the host syncs once at the end. On the
+CPU both run the same functions eagerly.
+
+Not ported: beam search (A12), fault hooks (A16) and multimodal prefill
+(``visual``, A13); each raises naming its item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
+from collections import OrderedDict
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from bigdl_tpu_torch.config import decode_resident_enabled, flags
+from bigdl_tpu_torch.cuda_graph import GraphPool, StepGraph, addresses
 from bigdl_tpu_torch.models import llama as llama_mod
 from bigdl_tpu_torch.ops import random as rnd
-from bigdl_tpu_torch.ops.kvcache import resolve_kv_cache_dtype
+from bigdl_tpu_torch.ops.kvcache import KVCache, resolve_kv_cache_dtype
+
+# the Generator's resident step keeps at most this many KV caches (one a
+# batch size) and this many graphs over each (one a sampling setting)
+KEEP_CACHES = 2
+KEEP_GRAPHS = 2
 
 
 @dataclasses.dataclass
@@ -107,8 +133,8 @@ def filter_logits(logits: torch.Tensor, top_k: int = 0,
                   top_p: float = 1.0) -> torch.Tensor:
     """top-k, then top-p filtering over the last axis (-inf outside the
     set); the top token always survives."""
-    ninf = torch.tensor(float("-inf"), dtype=logits.dtype,
-                        device=logits.device)
+    ninf = torch.full((), float("-inf"), dtype=logits.dtype,
+                      device=logits.device)
     if top_k > 0:
         kth = torch.sort(logits, dim=-1).values[..., -top_k][..., None]
         logits = torch.where(logits < kth, ninf, logits)
@@ -147,11 +173,123 @@ class GenerationStats:
         return float(np.mean(self.rest_token_s)) if self.rest_token_s else 0.0
 
 
-def generate_on_device(*args, **kwargs):
-    raise NotImplementedError(
-        "generate_on_device (the whole loop in one device program) is not "
-        "ported; it comes with the resident decode step (ROADMAP "
-        "A7-resident). Use Generator.generate")
+def step_resident(family, params, cfg, cache: KVCache, tok: torch.Tensor,
+                  key: torch.Tensor, finished: torch.Tensor,
+                  temperature: float, top_k: int, top_p: float,
+                  eos: Optional[int]) -> None:
+    """The Generator's resident step (``step_resident`` of the JAX
+    package): the family's forward of tok int64 [B] at ``cache.pos``, then
+    ``sample_token`` under the subkey in `key` (int64 [2] on the device),
+    then the EOS mask (rows already `finished` emit 0; `finished` [B] bool
+    grows in place). Writes the token to `tok` and advances ``cache.pos``
+    by one in place, so one call can be captured and replayed."""
+    logits, _ = family.forward(params, cfg, tok[:, None], cache)
+    nxt = sample_token(logits[:, -1, :], (key[0], key[1]), temperature,
+                       top_k, top_p).long()
+    if eos is not None:
+        nxt = torch.where(finished, torch.zeros_like(nxt), nxt)
+        finished.logical_or_(nxt == eos)
+    tok.copy_(nxt)
+    cache.pos.add_(1)
+
+
+def generate_on_device(params: Dict[str, Any], cfg, forward_fn, input_ids,
+                       cache: KVCache, max_new_tokens: int,
+                       temperature: float = 0.0, top_k: int = 0,
+                       top_p: float = 1.0,
+                       eos_token_id: Optional[int] = None, seed: int = 0,
+                       repetition_penalty: float = 1.0,
+                       presence_penalty: float = 0.0,
+                       frequency_penalty: float = 0.0):
+    """The whole generation with one host sync (``generate_on_device`` of
+    the JAX package): a prefill of input_ids [B, S] through
+    ``forward_fn(params, cfg, tokens, cache)``, the first token sampled
+    from its last position, then ``max_new_tokens - 1`` decode steps, each
+    sampling under the next subkey of ``split`` from ``PRNGKey(seed)``,
+    with the repetition penalty over prompt + output counts and the
+    presence / frequency penalties over output counts on the device. Rows
+    past their EOS emit 0 (shapes stay static; no early stop). Returns
+    (int32 tokens [B, max_new_tokens] on the cache's device, cache).
+
+    On the card the decode step is captured as a CUDA graph after its
+    first, eager run and replayed (``BIGDL_TPU_TORCH_DECODE_RESIDENT``
+    ``off`` runs it eagerly every time); on the CPU it runs eagerly."""
+    dev = cache.k.device
+    ids = torch.as_tensor(input_ids).to(dev, torch.int64)
+    b, s = ids.shape
+    if s + max_new_tokens > cache.max_seq:
+        raise ValueError(
+            f"prompt ({s}) + max_new_tokens ({max_new_tokens}) exceeds "
+            f"cache max_seq {cache.max_seq}")
+    with torch.inference_mode():
+        return _generate_on_device(
+            params, cfg, forward_fn, ids, cache, max_new_tokens, temperature,
+            top_k, top_p, eos_token_id, seed, repetition_penalty,
+            presence_penalty, frequency_penalty)
+
+
+def _generate_on_device(params, cfg, forward_fn, ids, cache, t_new, temp,
+                        top_k, top_p, eos, seed, rep_pen, pres, freq):
+    dev = ids.device
+    b = ids.shape[0]
+    penal = rep_pen != 1.0 or pres != 0.0 or freq != 0.0
+    logits, cache = forward_fn(params, cfg, ids, cache)
+    last = logits[:, -1, :]
+    v = last.shape[-1]
+    # rep counts include the prompt; out counts are generation-only
+    rep = token_counts(ids, v) if penal else None
+    outc = (torch.zeros((b, v), dtype=torch.int32, device=dev) if penal
+            else None)
+    rows = torch.arange(b, device=dev)
+
+    def pick(lg, k):
+        if penal:
+            lg = apply_penalties(lg, rep, outc, rep_pen, pres, freq)
+        return sample_token(lg, k, temperature=temp, top_k=top_k,
+                            top_p=top_p).long()
+
+    def bump(tok, done):
+        if penal:
+            add = (~done).to(torch.int32)
+            for counts in (rep, outc):
+                counts[rows, tok] = counts[rows, tok] + add
+
+    # the key chain of the JAX loop, split on the host once
+    key = rnd.prng_key(seed)
+    subkeys = []
+    for _ in range(t_new):
+        key, sk = rnd.split(key)
+        subkeys.append(sk)
+    tok = pick(last, subkeys[0])
+    done = (tok == eos if eos is not None
+            else torch.zeros((b,), dtype=torch.bool, device=dev))
+    bump(tok, torch.zeros_like(done))
+    out = torch.zeros((b, t_new), dtype=torch.int64, device=dev)
+    out[:, 0] = tok
+    # the step's state lives in tensors it updates in place
+    cache = cache.reset_pos(cache.pos.clone())
+    keys = torch.tensor(subkeys, dtype=torch.int64, device=dev)   # [T, 2]
+    ctr = torch.ones((1,), dtype=torch.int64, device=dev)
+
+    def step():
+        lg, _ = forward_fn(params, cfg, tok[:, None], cache)
+        sk = keys.index_select(0, ctr)[0]
+        nxt = torch.where(done, torch.zeros_like(tok),
+                          pick(lg[:, -1, :], (sk[0], sk[1])))
+        bump(nxt, done)
+        if eos is not None:
+            done.logical_or_(nxt == eos)
+        out.index_copy_(1, ctr, nxt[:, None])
+        tok.copy_(nxt)
+        ctr.add_(1)
+        cache.pos.add_(1)
+
+    run = step
+    if dev.type == "cuda" and decode_resident_enabled():
+        run = StepGraph("generate_on_device", step, dev)
+    for _ in range(t_new - 1):
+        run()
+    return out.to(torch.int32), cache
 
 
 def beam_search(*args, **kwargs):
@@ -177,6 +315,10 @@ class Generator:
         self.max_seq = max_seq
         self.kv_cache_dtype = resolve_kv_cache_dtype(kv_cache_dtype)
         self.device = params["embed_tokens"].device
+        # the resident step's kept KV caches by batch size, each with its
+        # graphs, lent to one call at a time (``_borrow``)
+        self._kept: "OrderedDict[int, _KeptCache]" = OrderedDict()
+        self._lock = threading.Lock()
 
     def _bucket(self, n: int) -> int:
         """The prompt length rounded up to a power of two (at least 16),
@@ -209,15 +351,75 @@ class Generator:
             raise ValueError(
                 f"prompt ({s}) + max_new_tokens ({gen.max_new_tokens}) "
                 f"exceeds max_seq {self.max_seq}")
-        with torch.inference_mode():
-            yield from self._stream(ids, gen, stats)
+        # each step runs under inference mode, and the mode is left before
+        # the yield: a suspended stream holding it would leave the
+        # caller's thread in it (and two interleaved streams would swap
+        # what they restore)
+        steps = self._stream(ids, gen, stats)
+        try:
+            while True:
+                with torch.inference_mode():
+                    tok = next(steps, None)
+                if tok is None:
+                    return
+                yield tok
+        finally:
+            steps.close()
+
+    def graph_stats(self) -> List[dict]:
+        """Each kept resident-step graph's key, capture ms, pool bytes,
+        replays and launches a replay (none on the CPU)."""
+        return [dict(st.graph.stats(), batch=k.b, temperature=key[0],
+                     top_k=key[1], top_p=key[2], eos=key[3])
+                for k in self._kept.values()
+                for key, st in k.steps.items() if st.graph.graph is not None]
+
+    def _borrow(self, b: int) -> "_KeptCache":
+        """The kept resident cache of batch `b`, lent to this call; a new
+        one if none is kept or the weights moved. When another call holds
+        it (two streams in flight), this call gets one of its own that is
+        not kept. At most KEEP_CACHES are kept, the most recently used."""
+        addrs = addresses(self.params)
+        with self._lock:
+            k = self._kept.pop(b, None)
+            if k is not None and k.addrs != addrs:
+                k = None
+            if k is not None and k.busy:
+                self._kept[b] = k
+                k = _KeptCache(self, b, addrs)
+            else:
+                k = k or _KeptCache(self, b, addrs)
+                self._kept[b] = k
+                while len(self._kept) > KEEP_CACHES:
+                    self._kept.popitem(last=False)
+            k.busy = True
+            return k
 
     def _stream(self, ids: np.ndarray, gen: GenerationConfig,
                 stats: Optional[GenerationStats]):
+        # the resident step's gate (the JAX Generator's): no host-side
+        # work a step, that is no penalties and no check_logits
+        if (not decode_resident_enabled() or gen.needs_token_counts
+                or gen.check_logits):
+            yield from self._run(ids, gen, stats, None)
+            return
+        kept = self._borrow(ids.shape[0])
+        try:
+            yield from self._run(ids, gen, stats, kept)
+        finally:
+            kept.busy = False
+
+    def _run(self, ids: np.ndarray, gen: GenerationConfig,
+             stats: Optional[GenerationStats], kept: Optional["_KeptCache"]):
+        """The generate loop; with `kept` its decode steps are the
+        resident step over the kept cache."""
         fam, p, cfg, dev = self.family, self.params, self.cfg, self.device
         b, s = ids.shape
-        cache = fam.new_cache(cfg, b, self.max_seq, device=dev,
-                              kv_cache_dtype=self.kv_cache_dtype)
+        if kept is not None:
+            cache = kept.cache
+        else:
+            cache = fam.new_cache(cfg, b, self.max_seq, device=dev,
+                                  kv_cache_dtype=self.kv_cache_dtype)
         bucket = self._bucket(s)
         pad = bucket - s
         padded = np.zeros((b, bucket), np.int32)
@@ -274,6 +476,21 @@ class Generator:
         if eos is not None:
             finished |= tok_host == eos
             finished_dev = torch.from_numpy(finished).to(dev)
+        if kept is not None:
+            st = kept.step(self, temp, gen)
+            st.start(tok, cache.pos, finished_dev)
+            for _ in range(1, gen.max_new_tokens):
+                if finished.all():
+                    break
+                t1 = time.perf_counter()
+                key, sk = rnd.split(key)
+                tok_host = st.step(sk)
+                if stats is not None:
+                    stats.rest_token_s.append(time.perf_counter() - t1)
+                yield tok_host
+                if eos is not None:
+                    finished |= tok_host == eos
+            return
         for step in range(1, gen.max_new_tokens):
             if finished.all():
                 break
@@ -292,3 +509,69 @@ class Generator:
             yield tok_host
             if eos is not None:
                 finished |= tok_host == eos
+
+
+class _KeptCache:
+    """A resident-step KV cache of batch `b` and the steps over it, one a
+    sampling setting, EOS and flag set (the KEEP_GRAPHS most recently
+    used). Their graphs share one memory pool: a kept cache is lent to
+    one call at a time, so they never replay at the same time. Prefill
+    rewrites every position a step reads, so a new call needs no
+    clearing."""
+
+    def __init__(self, g: Generator, b: int, addrs: tuple):
+        self.b, self.addrs, self.busy = b, addrs, False
+        self.cache = g.family.new_cache(g.cfg, b, g.max_seq, device=g.device,
+                                        kv_cache_dtype=g.kv_cache_dtype)
+        self.pool = GraphPool(g.device) if g.device.type == "cuda" else None
+        self.steps: "OrderedDict[tuple, _GenStep]" = OrderedDict()
+
+    def step(self, g: Generator, temp: float,
+             gen: GenerationConfig) -> "_GenStep":
+        key = (temp, gen.top_k, gen.top_p, gen.eos_token_id, flags())
+        st = self.steps.pop(key, None) or _GenStep(g, self, temp, gen)
+        self.steps[key] = st
+        while len(self.steps) > KEEP_GRAPHS:
+            self.steps.popitem(last=False)
+        return st
+
+
+class _GenStep:
+    """Static buffers of the Generator's resident step over one cache:
+    the token [B] int64, the subkey [2] int64, the EOS mask [B] bool and
+    the cache with a position tensor of its own, advanced in place; and
+    the step as a ``StepGraph`` (a graph on the card)."""
+
+    def __init__(self, g: Generator, kept: _KeptCache, temp: float,
+                 gen: GenerationConfig):
+        dev, b, cache = g.device, kept.b, kept.cache
+        self.tok = torch.zeros((b,), dtype=torch.int64, device=dev)
+        self.key = torch.zeros((2,), dtype=torch.int64, device=dev)
+        self.finished = torch.zeros((b,), dtype=torch.bool, device=dev)
+        self.cache = cache.reset_pos(torch.zeros((), dtype=torch.int32,
+                                                 device=dev))
+        self.sampled = temp > 0.0
+        c, tok, key, fin = self.cache, self.tok, self.key, self.finished
+        fam, p, cfg = g.family, g.params, g.cfg
+
+        def fn():
+            step_resident(fam, p, cfg, c, tok, key, fin, temp, gen.top_k,
+                          gen.top_p, gen.eos_token_id)
+
+        self.graph = StepGraph("generate_decode_resident", fn, dev,
+                               keep=(tok, key, fin, c.pos), pool=kept.pool)
+
+    def start(self, tok: torch.Tensor, pos: torch.Tensor,
+              finished: torch.Tensor) -> None:
+        """Load the first token, the position after prefill and the EOS
+        mask into the static buffers."""
+        self.tok.copy_(tok)
+        self.cache.pos.copy_(pos)
+        self.finished.copy_(finished)
+
+    def step(self, subkey) -> np.ndarray:
+        """One step under `subkey`; returns the int32 [B] tokens."""
+        if self.sampled:
+            self.key.copy_(torch.tensor(subkey, dtype=torch.int64))
+        self.graph()
+        return self.tok.cpu().numpy().astype(np.int32)

@@ -170,7 +170,15 @@ def decode_buffers(b: int, h: int, hkv: int, hd: int, nspan: int,
 
 
 def _positions(pos, b: int, device) -> torch.Tensor:
-    """Scalar or [B] positions -> contiguous int32 [B] on `device`."""
+    """Scalar or [B] positions -> contiguous int32 [B] on `device`. Inside
+    a CUDA graph capture they must already be a tensor on `device`: a
+    Python int or a host tensor would be copied once, at capture, and the
+    graph would replay that position forever."""
+    if (not (isinstance(pos, torch.Tensor) and pos.device == device)
+            and torch.cuda.is_current_stream_capturing()):
+        raise ValueError("attention positions must be a tensor on "
+                         f"{device} inside a CUDA graph capture, got "
+                         f"{type(pos).__name__}")
     p = torch.as_tensor(pos, device=device).to(torch.int32).reshape(-1)
     return p.expand(b).contiguous()
 

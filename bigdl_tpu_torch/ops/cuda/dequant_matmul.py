@@ -58,7 +58,7 @@ directly and never materialize the dense weight.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -481,6 +481,7 @@ def ticket_buffer(device: torch.device, count: int) -> torch.Tensor:
     key = (device.type, device.index)
     buf = _tickets.get(key)
     if buf is None or buf.numel() < count:
+        _no_growth_in_capture("ticket_buffer")
         buf = torch.zeros(max(count, _TICKETS_MIN), dtype=torch.int32,
                           device=device)
         _tickets[key] = buf
@@ -496,9 +497,29 @@ def workspace_buffer(device: torch.device, count: int) -> torch.Tensor:
     key = (device.type, device.index)
     buf = _workspaces.get(key)
     if buf is None or buf.numel() < count:
+        _no_growth_in_capture("workspace_buffer")
         buf = torch.empty(count, dtype=torch.float32, device=device)
         _workspaces[key] = buf
     return buf
+
+
+def _no_growth_in_capture(what: str) -> None:
+    """A scratch buffer grows only outside a CUDA graph capture: one made
+    inside would come from the graph's private pool and outlive it here.
+    A capture runs its step once eagerly first, which sizes the buffers."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what} would grow inside a CUDA graph capture; "
+                           "run the captured step once before capturing it")
+
+
+def scratch_buffers(device: torch.device) -> List[torch.Tensor]:
+    """The device's ticket and workspace buffers as they are now. A graph
+    that captured launches through them keeps this list: a later, larger
+    call replaces a buffer in the tables here, and the graph's reference
+    keeps the old one alive for its replays."""
+    key = (device.type, device.index)
+    return [b for b in (_tickets.get(key), _workspaces.get(key))
+            if b is not None]
 
 
 def _stream(device: torch.device) -> int:

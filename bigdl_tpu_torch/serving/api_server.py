@@ -15,7 +15,10 @@ Endpoints:
   an abort of the request when the client disconnects
 
 A request the engine refuses (``ValueError``: a bad prompt or parameter)
-answers 400; every other path answers 404. Not ported (each answers 404):
+answers 400; a non-streamed request the engine failed (finish reason
+"error": its logits health check quarantined it) answers 500 with the
+engine's ``error`` detail, as the JAX server does (a streamed one ends
+with ``[DONE]`` after what it emitted); every other path answers 404. Not ported (each answers 404):
 embeddings, KV handoff, migration, ``/v1/internal/*`` and ``/v1/admin/*``,
 the profiler endpoints, ``/v1/memory``, ``/v1/debug/dump``, ``/v1/perf``,
 ``/v1/quality``, ``/v1/slo`` and ``/v1/usage``; drain and SIGTERM;
@@ -216,7 +219,7 @@ class OpenAIServer:
                      stop_strs=(), disconnect_check=None,
                      cancel_cb=None, rid=None):
         """Returns (rid, {index: ids}, {index: logprob entries},
-        {index: finish_reason}, {index: final text}).
+        {index: finish_reason}, {index: final text}, {index: error}).
 
         ``stream_cb(text_delta, index)`` when set: deltas of the
         incremental decode, held back by len(longest stop) - 1 chars so a
@@ -233,6 +236,7 @@ class OpenAIServer:
         out_ids: dict = {}
         out_lps: dict = {}
         reasons: dict = {}
+        errors: dict = {}     # index -> the engine's error dict
         texts: dict = {}      # index -> full decoded (possibly cut) text
         emitted: dict = {}    # index -> chars already streamed
         scanned: dict = {}    # index -> chars already stop-scanned
@@ -353,6 +357,8 @@ class OpenAIServer:
                              if hold else len(det.text))
                 if o.finish_reason is not None:
                     reasons.setdefault(idx, o.finish_reason)
+                if o.error is not None:
+                    errors.setdefault(idx, o.error)
                 if o.finished:
                     reasons.setdefault(idx, o.finish_reason or "stop")
                     done = True
@@ -374,7 +380,7 @@ class OpenAIServer:
         # any empty phantom choice beyond n
         out_ids = {i: v for i, v in out_ids.items() if i < n_choices}
         texts = {i: v for i, v in texts.items() if i < n_choices}
-        return rid, out_ids, out_lps, reasons, texts
+        return rid, out_ids, out_lps, reasons, texts, errors
 
     # -- http ---------------------------------------------------------------
 
@@ -499,7 +505,7 @@ class OpenAIServer:
                         pass    # client left after the last delta
                     return
 
-                rid, out_ids, out_lps, reasons, texts = \
+                rid, out_ids, out_lps, reasons, texts, errors = \
                     server._run_request(
                         ids, params, stop_strs=stops,
                         disconnect_check=lambda: _socket_disconnected(
@@ -507,6 +513,14 @@ class OpenAIServer:
                         cancel_cb=lambda: server._cancelled.labels(
                             "nonstream").inc(),
                         rid=rid)
+                if any(r == "error" for r in reasons.values()):
+                    # a quarantined request is a server error with the
+                    # engine's structured diagnosis
+                    detail = next(iter(errors.values()), {})
+                    return self._json(500, {"error": {
+                        "message": "request failed in the engine",
+                        "type": "engine_error", "code": 500,
+                        "id": rid, **detail}})
                 choices = []
                 total_completion = 0
                 for idx in sorted(out_ids):

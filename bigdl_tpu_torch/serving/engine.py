@@ -44,14 +44,30 @@ kv_cache_dtype, kv_quantized), and ``add_request`` / ``abort_request`` /
   mean logprob when best_of > n; aborts of queued, admitting, decoding
   and fanned-out requests; the stall guard's preemption by recompute (the
   latest-arrived slot goes back to the queue, its tokens become prompt);
+- the resident decode step (``decode_resident``, the JAX engine's one
+  dispatch a step): when ``BIGDL_TPU_TORCH_DECODE_RESIDENT`` is not
+  ``off``, the engine is not paged and every active slot is simple, the
+  forward, the health check and the sampler run as one function over
+  static [max_batch] buffers, captured as a CUDA graph on the card (one
+  a sampler kind: all greedy or not) and replayed each such step, with
+  the step's inputs copied in (one copy when every row is greedy, three
+  when one samples) and one device-to-host copy of its tokens and health
+  bits; on the CPU the same function runs eagerly. Other steps run the
+  eager step;
+- the per-step logits health check (``logits_health_check``): a decode
+  row whose logits are not all finite quarantines its slot before the
+  step emits anything; the request finishes with reason "error" and the
+  JAX engine's ``error`` dict, counted in
+  ``bigdl_tpu_requests_quarantined_total{reason}``;
 - the JAX engine's serving metrics (``observability/metrics.py``) and
   request spans (``observability/tracing.py``). ``get_outputs`` and the
   queue are guarded by one lock: HTTP threads read outputs and add
   requests while one thread steps the engine.
 
 Not ported yet: deadlines and overload control (``max_time_ms``, QoS,
-tenants), the host prefix cache, fault handling, the logits health check,
-migration and the rest of observability.
+tenants), the host prefix cache, fault handling (retries, crash-loop
+quarantine, the flight recorder and postmortems), migration and the rest
+of observability.
 """
 
 from __future__ import annotations
@@ -67,6 +83,7 @@ import torch
 
 from bigdl_tpu_torch.config import (flags, resolve_kv_page_size,
                                     resolve_kv_pages, resolve_prefix_sharing)
+from bigdl_tpu_torch.cuda_graph import GraphPool, StepGraph
 from bigdl_tpu_torch.observability.metrics import (MetricsRegistry,
                                                    default_registry)
 from bigdl_tpu_torch.observability.tracing import RequestTracer
@@ -137,8 +154,8 @@ class RequestOutput:
     finish_reason: Optional[str] = None
     index: int = 0                    # choice index (n > 1 fan-out)
     logprobs: Optional[List[LogprobEntry]] = None
-    # structured failure detail of a finish reason "error" (the JAX
-    # engine's quarantine; the port emits none yet)
+    # structured failure detail of a finish reason "error": the JAX
+    # engine's {"reason": ..., "request_id": ...} of a quarantine
     error: Optional[dict] = None
 
 
@@ -173,6 +190,11 @@ class EngineConfig:
     # deprecated: True stores fp8_e5m2 where kv_cache_dtype is None or
     # "bf16" (the JAX engine's precedence); a non-bf16 kv_cache_dtype wins
     kv_quantized: bool = False
+    # per-step NaN/Inf logits health check: a non-finite decode row
+    # quarantines exactly that slot (reason "nan_logits") while every
+    # other slot keeps decoding. Costs one [B] bool copy a decode step
+    # (the resident step returns it with its tokens); False disables.
+    logits_health_check: bool = True
 
 
 class _Slot:
@@ -282,6 +304,72 @@ def sample_rows(lg: torch.Tensor, temps: torch.Tensor, top_ks: torch.Tensor,
     return torch.argmax(z, dim=-1)
 
 
+def decode_resident(family, params, cfg, cache: KVCache,
+                    tokens: torch.Tensor, temps: torch.Tensor,
+                    top_ks: torch.Tensor, top_ps: torch.Tensor,
+                    seeds: torch.Tensor, poss: torch.Tensor,
+                    out: torch.Tensor, all_greedy: bool) -> None:
+    """The resident decode step (``decode_resident`` of the JAX engine):
+    the family's slab forward of tokens [B] at ``cache.pos``, the per-row
+    health check ``isfinite(logits).all(-1)``, then the argmax
+    (`all_greedy`) or ``sample_rows`` over the sampler buffers (temps /
+    top_ps f32 [B], top_ks / seeds / poss int64 [B]). Writes the tokens to
+    ``out[0]`` and the health bits (1 = finite) to ``out[1]`` (int64
+    [2, B]) and advances ``cache.pos`` by one in place. It reads and
+    writes only these tensors, so one call can be captured as a CUDA
+    graph and replayed."""
+    logits, _ = family.forward(params, cfg, tokens[:, None], cache)
+    lg = logits[:, -1, :]
+    toks = (torch.argmax(lg, dim=-1) if all_greedy
+            else sample_rows(lg, temps, top_ks, top_ps, seeds, poss))
+    out[0].copy_(toks)
+    out[1].copy_(torch.isfinite(lg).all(dim=-1))
+    cache.pos.add_(1)
+
+
+class _ResidentStep:
+    """The engine's resident step: its static buffers on the engine's
+    device and one ``StepGraph`` a sampler kind (all greedy or not), both
+    in one memory pool (they never replay at the same time). The graphs
+    read the engine's weights and cache, which keep their addresses for
+    the engine's life; they are dropped when the flags change, since
+    those pick the kernels a step launches."""
+
+    def __init__(self, eng: "LLMEngine"):
+        b, dev = eng.cfg_engine.max_batch, eng.device
+        self.eng = eng
+        # tokens, top_ks, seeds, poss / temps, top_ps / tokens, finite
+        self.ints = torch.zeros((4, b), dtype=torch.int64, device=dev)
+        self.floats = torch.zeros((2, b), dtype=torch.float32, device=dev)
+        self.out = torch.zeros((2, b), dtype=torch.int64, device=dev)
+        self.pool = GraphPool(dev) if dev.type == "cuda" else None
+        self.graphs: Dict[bool, StepGraph] = {}
+        self._flags = None
+
+    def graph(self, all_greedy: bool, f) -> StepGraph:
+        if f != self._flags:
+            self.graphs.clear()
+            self._flags = f
+        g = self.graphs.get(all_greedy)
+        if g is None:
+            eng = self.eng
+            ints, fl, out = self.ints, self.floats, self.out
+
+            def fn():
+                decode_resident(eng.family, eng.params, eng.cfg, eng.cache,
+                                ints[0], fl[0], ints[1], fl[1], ints[2],
+                                ints[3], out, all_greedy)
+
+            g = self.graphs[all_greedy] = StepGraph(
+                "engine_decode_resident", fn, eng.device,
+                keep=(ints, fl, out), pool=self.pool)
+        return g
+
+    def stats(self) -> List[dict]:
+        return [dict(g.stats(), all_greedy=k)
+                for k, g in self.graphs.items() if g.graph is not None]
+
+
 class LLMEngine:
     """Synchronous continuous-batching engine over one model: anything
     with ``.params``, ``.config``, ``.hf_config`` and ``.family``, the
@@ -373,6 +461,10 @@ class LLMEngine:
         # chunk width: a power of two, so chunks tile the private cache
         self._chunk = 1 << (max(1, ce.prefill_chunk).bit_length() - 1)
         self._admitting: Optional[_Admission] = None
+        # the resident step's buffers and graphs, made at its first use;
+        # resident_steps counts the steps it served
+        self._resident: Optional[_ResidentStep] = None
+        self.resident_steps = 0
         self.registry = registry if registry is not None \
             else default_registry()
         self.tracer = RequestTracer()
@@ -418,6 +510,12 @@ class LLMEngine:
         self._m_tokens = m.counter(
             "bigdl_tpu_tokens_generated_total",
             "Tokens emitted to clients.")
+        self._m_quarantined = m.counter(
+            "bigdl_tpu_requests_quarantined_total",
+            "Requests failed by blast-radius isolation, by reason.",
+            labelnames=("reason",))
+        for r in ("nan_logits", "crash_loop"):   # render from scrape 1
+            self._m_quarantined.labels(r)
 
     # -- public surface -------------------------------------------------------
 
@@ -557,37 +655,30 @@ class LLMEngine:
             self._update_gauges()
             return did
         t0 = time.perf_counter()
-        b = ce.max_batch
-        tokens = torch.zeros((b,), dtype=torch.int64)
-        for i in active:
-            tokens[i] = self.slots[i].last_token
-        tokens = tokens.to(self.device)[:, None]
-        if self._paged:
-            # copy-on-write barrier first (shared write pages get private
-            # copies), then one decode through the block tables
-            self._cow_step(active)
-            logits, self.cache = self.family.forward_paged(
-                self.params, self.cfg, tokens, self.cache, self._bt(),
-                last_only=True)
+        # the resident step serves a step whose every active slot the
+        # device sampler covers (the JAX engine's gate; a paged engine
+        # keeps the eager step)
+        f = flags()
+        if (f.decode_resident != "off" and not self._paged
+                and all(self._simple(self.slots[i]) for i in active)):
+            toks, finite = self._resident_step(active, f)
+            host: Dict[int, np.ndarray] = {}
         else:
-            logits, self.cache = self.family.forward(self.params, self.cfg,
-                                                     tokens, self.cache)
-        lg = logits[:, -1, :]
-        simple = [i for i in active if self._simple(self.slots[i])]
-        complex_rows = [i for i in active if i not in simple]
-        toks: List[int] = []
-        if simple and all(self.slots[i].req.params.temperature <= 0.0
-                          for i in simple):
-            toks = torch.argmax(lg, dim=-1).tolist()
-        elif simple:
-            # every batch holding a simple slot samples it on the device,
-            # so a seeded stream does not depend on its neighbours
-            toks = sample_rows(lg, *self._sample_params(simple)).tolist()
-        host: Dict[int, np.ndarray] = {}
-        if complex_rows:
-            # one copy a step for every host-sampled row
-            rows = lg[complex_rows].cpu().numpy()
-            host = dict(zip(complex_rows, rows))
+            toks, finite, host = self._eager_step(active,
+                                                  ce.logits_health_check)
+        # per-slot logits health check: a NaN/Inf row fails ONE request
+        # (quarantine, structured error) before anything of this step is
+        # emitted, while the rest of the batch keeps decoding
+        if ce.logits_health_check:
+            sick = [i for i in active if not finite[i]]
+            if sick:
+                for i in sick:
+                    self._quarantine_slot(i, "nan_logits")
+                active = [i for i in active if i not in sick]
+            if not active:
+                self._m_steps.inc()
+                self._update_gauges()
+                return True
         for i in active:
             s = self.slots[i]
             if i in host:
@@ -602,6 +693,12 @@ class LLMEngine:
         self._m_steps.inc()
         self._update_gauges()
         return True
+
+    def resident_graph_stats(self) -> List[dict]:
+        """Each resident-step graph's capture ms, pool bytes, replays and
+        launches a replay (empty before the first resident step, and on
+        the CPU, where no graph is made)."""
+        return [] if self._resident is None else self._resident.stats()
 
     def generate(self, prompts: List[List[int]],
                  params: Optional[SamplingParams] = None) -> List[List[int]]:
@@ -621,6 +718,88 @@ class LLMEngine:
         return [done[rid] for rid in ids]
 
     # -- internals ------------------------------------------------------------
+
+    def _eager_step(self, active: List[int], check: bool
+                    ) -> Tuple[List[int], Optional[List[int]],
+                               Dict[int, np.ndarray]]:
+        """The eager decode step: the forward, the device sampler's tokens
+        for the simple slots and (`check`) the health bits, copied back
+        together, and each host-sampled row's logits. Returns (tokens over
+        all max_batch rows, or [] when no slot is simple; health bits or
+        None; {row: f32 logits})."""
+        lg = self._eager_decode(active)
+        simple = [i for i in active if self._simple(self.slots[i])]
+        complex_rows = [i for i in active if i not in simple]
+        rows = []
+        if simple and all(self.slots[i].req.params.temperature <= 0.0
+                          for i in simple):
+            rows.append(torch.argmax(lg, dim=-1))
+        elif simple:
+            # every batch holding a simple slot samples it on the device,
+            # so a seeded stream does not depend on its neighbours
+            rows.append(sample_rows(lg, *(t.to(self.device) for t in
+                                          self._sample_params(simple))))
+        if check:
+            rows.append(torch.isfinite(lg).all(dim=-1).to(torch.int64))
+        back = torch.stack(rows).tolist() if rows else []
+        host: Dict[int, np.ndarray] = {}
+        if complex_rows:
+            # one copy a step for every host-sampled row
+            host = dict(zip(complex_rows, lg[complex_rows].cpu().numpy()))
+        return (back[0] if simple else [], back[-1] if check else None,
+                host)
+
+    def _eager_decode(self, active: List[int]) -> torch.Tensor:
+        """One batched decode forward of the active slots' last tokens,
+        launch by launch; returns the f32 logits [max_batch, V]. The
+        cache's position vector advances in place (the resident step's
+        graphs read that tensor)."""
+        tokens = self._last_tokens(active).to(self.device)[:, None]
+        if self._paged:
+            # copy-on-write barrier first (shared write pages get private
+            # copies), then one decode through the block tables
+            self._cow_step(active)
+            logits, _ = self.family.forward_paged(
+                self.params, self.cfg, tokens, self.cache, self._bt(),
+                last_only=True)
+        else:
+            logits, _ = self.family.forward(self.params, self.cfg, tokens,
+                                            self.cache)
+        self.cache.pos.add_(1)
+        return logits[:, -1, :]
+
+    def _last_tokens(self, active: List[int]) -> torch.Tensor:
+        """int64 [max_batch] on the host: each active slot's last token,
+        0 in the idle rows."""
+        tokens = torch.zeros((self.cfg_engine.max_batch,), dtype=torch.int64)
+        for i in active:
+            tokens[i] = self.slots[i].last_token
+        return tokens
+
+    def _resident_step(self, active: List[int], f
+                       ) -> Tuple[List[int], List[int]]:
+        """The resident step over every slot under flags `f`: the step's
+        inputs copied to the device (the tokens; the sampler's int and
+        float rows too unless every active slot is greedy),
+        ``decode_resident`` (a graph replay on the card), one copy of its
+        tokens and health bits back. Returns both as lists over all
+        max_batch rows."""
+        if self._resident is None:
+            self._resident = _ResidentStep(self)
+        rs = self._resident
+        all_greedy = all(self.slots[i].req.params.temperature <= 0.0
+                         for i in active)
+        tokens = self._last_tokens(active)
+        if all_greedy:
+            rs.ints[0].copy_(tokens)
+        else:
+            temps, top_ks, top_ps, seeds, poss = self._sample_params(active)
+            rs.ints.copy_(torch.stack([tokens, top_ks, seeds, poss]))
+            rs.floats.copy_(torch.stack([temps, top_ps]))
+        rs.graph(all_greedy, f)()
+        self.resident_steps += 1
+        out = rs.out.cpu().tolist()
+        return out[0], out[1]
 
     def _bucket(self, n: int) -> int:
         b = self.cfg_engine.prefill_bucket
@@ -966,7 +1145,8 @@ class LLMEngine:
             s.counts_out = None
 
     def _sample_params(self, idxs: List[int]):
-        """The device sampler's per-row inputs over all max_batch rows;
+        """The device sampler's per-row inputs over all max_batch rows, on
+        the host: temps, top_ks, top_ps, seeds, poss (f32 / int64 [B]);
         rows outside `idxs` are greedy. A row's position is its absolute
         output position (generated_offset + generated), so a seeded stream
         survives preemption."""
@@ -974,15 +1154,15 @@ class LLMEngine:
         temps = torch.zeros((b,), dtype=torch.float32)
         top_ks = torch.zeros((b,), dtype=torch.int64)
         top_ps = torch.ones((b,), dtype=torch.float32)
-        seeds, poss = [0] * b, [0] * b
+        seeds = torch.zeros((b,), dtype=torch.int64)
+        poss = torch.zeros((b,), dtype=torch.int64)
         for i in idxs:
             s = self.slots[i]
             p = s.req.params
             temps[i], top_ks[i], top_ps[i] = p.temperature, p.top_k, p.top_p
             seeds[i] = s.dev_seed
             poss[i] = s.req.generated_offset + len(s.generated)
-        dev = self.device
-        return temps.to(dev), top_ks.to(dev), top_ps.to(dev), seeds, poss
+        return temps, top_ks, top_ps, seeds, poss
 
     def _sample_admission(self, lg: torch.Tensor, s: _Slot
                           ) -> Tuple[int, Optional[LogprobEntry]]:
@@ -1148,20 +1328,33 @@ class LLMEngine:
         self._finish(idx, reason)
         return True
 
-    def _finish(self, idx: int, reason: str) -> None:
+    def _finish(self, idx: int, reason: str,
+                error: Optional[dict] = None) -> None:
         s = self.slots[idx]
         if s.req is None:
             return
         gen_len = s.req.generated_offset + len(s.generated)
-        if reason == "abort" and self.radix is not None:
-            # a cancelled client's prompt pages are dead weight
+        if reason in ("abort", "error") and self.radix is not None:
+            # a cancelled client's prompt pages are dead weight; a
+            # poisoned request's must never seed a future admission
             self.radix.drop(s.req.prompt_token_ids)
         self._push_output(
             s.req.request_id,
-            RequestOutput(s.req.request_id, [], True, reason),
+            RequestOutput(s.req.request_id, [], True, reason, error=error),
             score=s.cum_logprob, length=gen_len)
         self._obs_finish(s.req.request_id, reason, n_generated=gen_len)
         self._reset_slot(idx)
+
+    def _quarantine_slot(self, idx: int, reason: str) -> None:
+        """Blast-radius isolation: fail ONE resident request with a
+        structured error while every other slot keeps decoding."""
+        rid = self.slots[idx].req.request_id
+        self._m_quarantined.labels(reason).inc()
+        self._finish(idx, "error", error=self._quarantine_error(reason, rid))
+
+    @staticmethod
+    def _quarantine_error(reason: str, rid: str) -> dict:
+        return {"reason": reason, "request_id": rid}
 
     def _reset_slot(self, idx: int) -> None:
         """Empty a slot: release its pages (paged) and reset its position

@@ -45,14 +45,29 @@ Phases, all of them on every run, each printing one JSON line:
    Llama-2-7B linears.
 4. reference: a 2-layer cut of the full-width model, prefill + one decode
    step on the card (kernels) against the same on the CPU (plain).
+4a. resident: the resident decode step (``BIGDL_TPU_TORCH_DECODE_RESIDENT``:
+   one CUDA graph replay a step) against the eager step, in turns in one
+   process, before any torch.profiler window: the engine phase's eight
+   requests through a slab engine at each KV kind (bf16: eager, graph,
+   graph, eager; the others eager, graph), ``Generator.generate`` at bs 1
+   greedy and bs 4 sampled (eager, graph, graph, eager) and
+   ``generate_on_device`` at bs 1 (its eager loop, then its graph). Every
+   graph stream must equal the eager stream token for token, and a graph
+   engine's every pure-decode step must be exactly one replay (none on a
+   step that captured). Step and next-token ms of both paths, replays,
+   each graph's capture ms and pool bytes are printed. Every later engine
+   and generate phase runs the resident step too (the flag's default);
+   launch counts include each replay's kernels.
 5. engine: seeded full-width Llama-2-7B, sym_int4 linears, merged
    projections, through ``LLMEngine`` (max_batch 8, max_seq 2048): eight
    requests whose prompt lengths cover every kernel route, 32 new tokens
    each; every request must finish, greedy and seeded requests must repeat,
    and every kernel's launch count must rise during the run. A last pass
    of the same requests profiles a few pure-decode steps (device time by
-   kernel group, launches, idle share; one B3 kernel a B3 call and at
-   most one small-M kernel a B1 call, of any body).
+   kernel group, launches, host launch calls, idle share; one B3 kernel a
+   B3 call and at most one small-M kernel a B1 call, of any body) under
+   the graph, and the same window again with the eager step
+   (``decode_profile_eager``).
 5a. server: the engine phase's eight requests through the port's
    ``OpenAIServer`` (``serving/api_server.py``) on 127.0.0.1, port 0, over
    a fresh slab engine (max_batch 8, max_seq 2048), each request from a
@@ -141,6 +156,11 @@ Phases, all of them on every run, each printing one JSON line:
 14. reference_moe: a 2-layer cut, 8 prompts of 32 tokens then one decode
    step (both through B6) on the card, against the same on the CPU with
    the ragged dispatch on B6's plain version.
+14a. resident_moe: Mixtral's decode as a graph against the eager step
+   (eager, then graph): the engine phase's eight requests at max_batch 8
+   (the ragged dispatch: B6 in the graph) and four greedy ones at
+   max_batch 4 (the gathered experts: B1 in the graph, no B6); streams
+   equal the eager step's, one replay a pure-decode step.
 15. engine_moe: the engine phase's eight requests through ``LLMEngine``
    serving Mixtral, twice: every request finishes, greedy and seeded
    streams repeat, B1-B4 and B6 launch, B6 in prefill and in decode; then
@@ -158,8 +178,10 @@ non-zero before the final line is printed. Imports torch, numpy and the port onl
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1183,8 +1205,9 @@ def phase_reference(params, cfg, kind="bf16", cut=None, extra=None):
 
 def _run_requests(eng, requests):
     """Feed all requests, step to completion; returns tokens, TTFT and
-    pure-decode step timing (with each kernel's launches in those steps)."""
-    from bigdl_tpu_torch.ops.cuda import launch_counts
+    pure-decode step timing (with each kernel's launches, the graph
+    replays and the steps the resident step served in those steps)."""
+    from bigdl_tpu_torch.ops.cuda import launch_counts, replay_counts
 
     t0 = time.perf_counter()
     for rid, prompt, sp in requests:
@@ -1194,10 +1217,14 @@ def _run_requests(eng, requests):
     decode_s, decode_tokens, decode_steps, steps = 0.0, 0, 0, 0
     peak = 0
     decode_launches = dict.fromkeys(launch_counts(), 0)
+    step_ms, replays_per_step, resident, captures = [], [], 0, 0
     while eng.has_unfinished():
         pure = eng._admitting is None and not eng.waiting
         n_active = sum(s.active for s in eng.slots)
         before = launch_counts()
+        replays0 = sum(replay_counts().values())
+        res0 = eng.resident_steps
+        graphs0 = len(eng.resident_graph_stats())
         ts = time.perf_counter()
         eng.step()
         torch.cuda.synchronize()
@@ -1208,6 +1235,10 @@ def _run_requests(eng, requests):
             decode_s += te - ts
             decode_tokens += n_active
             decode_steps += 1
+            step_ms.append(1e3 * (te - ts))
+            replays_per_step.append(sum(replay_counts().values()) - replays0)
+            resident += eng.resident_steps - res0
+            captures += len(eng.resident_graph_stats()) - graphs0
             for k, v in launch_counts().items():
                 decode_launches[k] += v - before[k]
         for rid in toks:
@@ -1224,7 +1255,16 @@ def _run_requests(eng, requests):
         "decode_tokens_per_s": decode_tokens / decode_s if decode_s else None,
         "decode_steps": decode_steps,
         "decode_step_ms": 1e3 * decode_s / decode_steps if decode_steps
-        else None, "decode_launches": decode_launches}
+        else None,
+        "decode_step_ms_median": (float(np.median(step_ms)) if step_ms
+                                  else None),
+        # graph replays a pure-decode step: 1, or 0 on a step that ran
+        # eagerly (the flag off, a capture, host-sampled slots)
+        "decode_replays": sum(replays_per_step),
+        "decode_replays_per_step": sorted(set(replays_per_step)),
+        "decode_captures": captures,
+        "decode_resident_steps": resident,
+        "decode_launches": decode_launches}
 
 
 def _kernel_group(name: str) -> str:
@@ -1241,6 +1281,27 @@ def _kernel_group(name: str) -> str:
         if key in name.lower():
             return group
     return "other"
+
+
+# host calls that start device work: kernel launches, graph launches and
+# copies (a CUDA graph's kernels start from one cudaGraphLaunch)
+HOST_LAUNCH_API = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch")
+HOST_COPY_API = ("cudaMemcpy", "cudaMemset")
+
+
+def _host_launch_calls(prof, steps):
+    """(host launch calls a step, every launch / copy API call a step by
+    name) of a finished profile."""
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU and e.key.startswith(
+                HOST_LAUNCH_API + HOST_COPY_API):
+            by_name[e.key] = by_name.get(e.key, 0) + e.count / steps
+    launches = sum(v for k, v in by_name.items()
+                   if k.startswith(HOST_LAUNCH_API))
+    return launches, by_name
 
 
 def _device_ms_by_group(prof, steps):
@@ -1340,6 +1401,8 @@ def _decode_window(eng, requests, steps, tag):
         prof.__exit__(None, None, None)
         try:
             groups, launches, by_group = _device_ms_by_group(prof, steps)
+            out["host_launch_calls_per_step"], out["host_api_per_step"] = \
+                _host_launch_calls(prof, steps)
         except (RuntimeError, AttributeError) as e:
             groups, out["device_ms_per_step"] = {}, f"not measured: {e}"
         if groups:
@@ -1540,6 +1603,10 @@ def phase_engine(params, cfg, max_new=32):
            torch.cuda.max_memory_allocated(), **perf,
            "repeat_run": perf2,
            "decode_profile": _profile_decode(eng, requests)}
+    # the same window with the eager step: its host launch calls beside
+    # the resident step's one graph launch
+    with _resident("off"):
+        res["decode_profile_eager"] = _profile_decode(eng, requests)
     greedy_same = all(toks1[r] == toks2[r] for r, _, sp in requests
                       if sp.temperature <= 0)
     seeded_same = all(toks1[r] == toks2[r] for r, _, sp in requests
@@ -1568,13 +1635,323 @@ def phase_engine(params, cfg, max_new=32):
             res["decode_step_ms"])
 
 
+RESIDENT_ENV = "BIGDL_TPU_TORCH_DECODE_RESIDENT"
+
+
+@contextlib.contextmanager
+def _resident(mode):
+    """BIGDL_TPU_TORCH_DECODE_RESIDENT set to `mode` ("off": the eager
+    step; "auto": the resident step, a CUDA graph replay) inside."""
+    old = os.environ.get(RESIDENT_ENV)
+    os.environ[RESIDENT_ENV] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(RESIDENT_ENV, None)
+        else:
+            os.environ[RESIDENT_ENV] = old
+
+
+def _resident_engine_turns(name, model, requests, ecfg, turns):
+    """The requests through one eager and one graph engine of `ecfg`, in
+    `turns` (modes in order), in one process: every turn's streams and
+    finish reasons must equal the first's; the graph engine's steps must
+    be resident, each pure-decode step one replay once its graphs exist.
+    Returns (record, the graph turns' launches, graph turns' decode
+    launches)."""
+    from bigdl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from bigdl_tpu_torch.serving.engine import LLMEngine
+
+    engs = {m: LLMEngine(model, ecfg, device="cuda") for m in set(turns)}
+    runs, counts, dec = [], {}, {}
+    for m in turns:
+        with _resident(m):
+            reset_launch_counts()
+            toks, reasons, _, perf = _run_requests(engs[m], requests)
+        if m != "off":
+            for k, v in launch_counts().items():
+                counts[k] = counts.get(k, 0) + v
+            for k, v in perf["decode_launches"].items():
+                dec[k] = dec.get(k, 0) + v
+        runs.append({"mode": m, "toks": toks, "reasons": reasons,
+                     **{k: perf[k] for k in (
+                         "wall_s", "decode_steps", "decode_step_ms",
+                         "decode_step_ms_median", "decode_tokens_per_s",
+                         "decode_replays", "decode_replays_per_step",
+                         "decode_captures", "decode_resident_steps")}})
+    graphs = engs["auto"].resident_graph_stats()
+    del engs
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = runs[0]
+    for r in runs:
+        require(all(ref["reasons"].get(q) in ("length", "stop")
+                    and r["reasons"].get(q) == ref["reasons"].get(q)
+                    for q, _, _ in requests),
+                f"resident {name}: finish reasons {r['reasons']}")
+        require(r["toks"] == ref["toks"],
+                f"resident {name}: the {r['mode']} turn's streams differ "
+                "from the eager step's")
+        steps = r["decode_steps"]
+        if r["mode"] == "off":
+            require(r["decode_resident_steps"] == r["decode_replays"] == 0,
+                    f"resident {name}: the eager turn replayed a graph")
+        else:
+            # a step that captured ran eagerly; every other one replayed
+            # exactly one graph
+            require(r["decode_resident_steps"] == steps and
+                    r["decode_replays"] == steps - r["decode_captures"] and
+                    max(r["decode_replays_per_step"]) == 1,
+                    f"resident {name}: {r['decode_replays']} replays in "
+                    f"{steps} pure-decode steps ({r['decode_captures']} "
+                    "captures)")
+    require(graphs and all(g["captured"] for g in graphs),
+            f"resident {name}: no graph captured: {graphs}")
+    rec = {"graphs": graphs, "runs": [
+        {k: v for k, v in r.items() if k not in ("toks", "reasons")}
+        for r in runs], "streams_equal": True,
+        "tokens": {q: ref["toks"][q][:8] for q, _, _ in requests[:2]}}
+    return rec, counts, dec
+
+
+# a step whose capture must fail (a host read of a device value), run by
+# ``_failed_capture_raises`` in a process of its own
+_CAPTURE_FAILS = """
+import json, torch
+from bigdl_tpu_torch.cuda_graph import StepGraph
+x = torch.zeros(4, device="cuda")
+def step():
+    x.add_(1)
+    if float(x.sum()) < 0:
+        x.zero_()
+try:
+    StepGraph("probe", step, torch.device("cuda"))()
+    out = {"raised": None}
+except Exception as e:
+    out = {"raised": type(e).__name__, "message": str(e)[:300]}
+out["eager_runs"] = float(x[0])
+print(json.dumps(out))
+"""
+
+
+def _failed_capture_raises():
+    """A capture that fails raises (``StepGraph``'s RuntimeError) after
+    the step's one eager run, and runs nothing else; checked in a child
+    process, so the smoke's own CUDA context never holds a failed
+    capture."""
+    r = subprocess.run([sys.executable, "-c", _CAPTURE_FAILS],
+                       capture_output=True, text=True, timeout=300,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = r.stdout.strip().splitlines()
+    out = json.loads(lines[-1]) if r.returncode == 0 and lines else {
+        "returncode": r.returncode, "stderr": r.stderr[-500:]}
+    require(out.get("raised") == "RuntimeError"
+            and "capture failed" in out.get("message", "")
+            and out.get("eager_runs") == 1.0,
+            f"resident: a failing capture did not raise: {out}")
+    return out
+
+
+def _interleaved_streams(gens, ids_a, ids_b, gen):
+    """Two ``generate_stream``-style streams of one graph Generator in
+    flight at one batch size, stepped in turns: the first holds the kept
+    KV cache, so the second must get a cache and a graph of its own. Each
+    stream must equal its prompt's eager stream, and the kept caches stay
+    within ``KEEP_CACHES``."""
+    from bigdl_tpu_torch.generation import KEEP_CACHES
+
+    with _resident("off"):
+        want = [gens["off"].generate(i, gen) for i in (ids_a, ids_b)]
+    with _resident("auto"):
+        g = gens["auto"]
+        streams = [g.stream(i, gen) for i in (ids_a, ids_b)]
+        got = [[], []]
+        for ta, tb in zip(*streams):
+            got[0].append(ta)
+            got[1].append(tb)
+        got = [np.stack(t, axis=1) for t in got]
+        torch.cuda.synchronize()
+    require(all(np.array_equal(a, b) for a, b in zip(got, want)),
+            "resident generate: two interleaved streams differ from their "
+            "eager streams")
+    require(len(g._kept) <= KEEP_CACHES,
+            f"resident generate: {len(g._kept)} kept caches")
+    return {"streams": 2, "tokens_equal": True,
+            "kept_caches": len(g._kept),
+            "kept_batches": sorted(g._kept)}
+
+
+def phase_resident(params, cfg, max_new=32, new_tokens=64):
+    """The resident decode step (a CUDA graph a step) against the eager
+    step, in turns in one process, before any torch.profiler window: the
+    engine phase's eight requests through a slab engine (max_batch 8) at
+    each KV kind (bf16: eager, graph, graph, eager; the others eager,
+    graph); ``Generator.generate`` at bs 1 (greedy, a 100-token prompt)
+    and bs 4 (seeded sampling), eager, graph, graph, eager, then two
+    greedy bs 1 streams in flight at once (``_interleaved_streams``); and
+    ``generate_on_device`` at bs 1, its eager loop then its graph. Every
+    graph stream must equal the eager stream token for token; a graph
+    engine's pure-decode step is one replay (a capturing step none); a
+    capture that fails raises (``_failed_capture_raises``).
+    Reports step and next-token ms of both paths, replays, each graph's
+    capture ms and pool bytes."""
+    from bigdl_tpu_torch.generation import (GenerationConfig,
+                                            GenerationStats, Generator,
+                                            generate_on_device)
+    from bigdl_tpu_torch.models import llama
+    from bigdl_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from bigdl_tpu_torch.serving.engine import EngineConfig
+    from bigdl_tpu_torch.utils.testing import SyntheticCausalLM
+
+    t_phase = time.perf_counter()
+    lens, requests = _engine_requests(cfg, max_new)
+    model = SyntheticCausalLM(params, cfg)
+    res = {"phase": "resident", "model": "llama2-7b", "qtype": "sym_int4",
+           "layers": cfg.num_hidden_layers, "requests": len(requests),
+           "prompt_lens": lens, "max_new_tokens": max_new, "engine": {}}
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    for kind in ("bf16", "fp8_e5m2", "int8", "int4"):
+        turns = (("off", "auto", "auto", "off") if kind == "bf16"
+                 else ("off", "auto"))
+        rec, c, dec = _resident_engine_turns(
+            f"engine {kind}", model, requests,
+            EngineConfig(max_batch=8, max_seq=2048, kv_cache_dtype=kind),
+            turns)
+        add(c)
+        attn = "decode_attention" + ("" if kind == "bf16" else f"_{kind}")
+        require(dec["dequant_gemv"] > 0 and dec[attn] > 0,
+                f"resident engine {kind}: B1 / {attn} did not launch in the "
+                "graph's decode steps")
+        res["engine"][kind] = rec
+
+    rng = np.random.default_rng(13)
+    ids1 = rng.integers(3, cfg.vocab_size, (1, 100))
+    ids4 = rng.integers(3, cfg.vocab_size, (4, 100))
+    greedy = GenerationConfig(max_new_tokens=new_tokens)
+    sampled = GenerationConfig(max_new_tokens=new_tokens, do_sample=True,
+                               temperature=0.8, top_k=40, top_p=0.95,
+                               seed=11)
+    gens = {m: Generator(params, cfg, max_seq=2048) for m in ("off", "auto")}
+    gruns, outs = [], []
+    for m in ("off", "auto", "auto", "off"):
+        with _resident(m):
+            reset_launch_counts()
+            stats = GenerationStats()
+            t0 = time.perf_counter()
+            a = gens[m].generate(ids1, greedy, stats=stats)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            b = gens[m].generate(ids4, sampled)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if m != "off":
+                add(launch_counts())
+        outs.append((a, b))
+        gruns.append({"mode": m, "bs1_wall_s": t1 - t0,
+                      "bs1_next_token_ms": 1e3 * stats.rest_cost_mean,
+                      "bs1_ttft_s": stats.first_token_s,
+                      "bs4_sampled_wall_s": t2 - t1})
+    gstats = gens["auto"].graph_stats()
+    inter = _interleaved_streams(gens, ids1, ids4[1:2], greedy)
+    del gens
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(all(np.array_equal(a, outs[0][0]) and np.array_equal(
+        b, outs[0][1]) for a, b in outs),
+            "resident generate: graph tokens differ from the eager step's")
+    require(len(gstats) == 2 and all(
+        g["captured"] and g["replays"] == 2 * (new_tokens - 1) - 1
+        for g in gstats),
+            f"resident generate: graphs {gstats}")
+    res["generate"] = {"new_tokens": new_tokens, "runs": gruns,
+                       "graphs": gstats, "tokens_equal": True,
+                       "interleaved": inter,
+                       "bs1_tokens": outs[0][0][0, 100:108].tolist()}
+
+    dres = {}
+    for m in ("off", "auto"):
+        with _resident(m):
+            reset_launch_counts()
+            cache = llama.new_cache(cfg, 1, 2048, device="cuda")
+            t0 = time.perf_counter()
+            out, cache = generate_on_device(params, cfg, llama.forward,
+                                            ids1, cache, new_tokens)
+            toks = out.cpu().numpy()
+            dres[m] = {"wall_s": time.perf_counter() - t0,
+                       "pos": int(cache.pos), "tokens": toks}
+            c = launch_counts()
+            if m != "off":
+                add(c)
+            dres[m]["decode_attention"] = c["decode_attention"]
+            del cache
+    require(np.array_equal(dres["off"]["tokens"], dres["auto"]["tokens"]),
+            "resident generate_on_device: graph tokens differ from its "
+            "eager loop's")
+    L = cfg.num_hidden_layers
+    require(all(d["pos"] == 100 + new_tokens - 1 and d["decode_attention"]
+                == L * (new_tokens - 1) for d in dres.values()),
+            f"resident generate_on_device: {dres}")
+    res["generate_on_device"] = {
+        m: {k: v for k, v in d.items() if k != "tokens"}
+        for m, d in dres.items()}
+    res["generate_on_device"]["tokens_equal"] = True
+    res["failed_capture"] = _failed_capture_raises()
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    return counts
+
+
+def phase_resident_moe(params, cfg, max_new=32):
+    """Mixtral-8x7B's decode as a CUDA graph against the eager step, in
+    turns: the engine phase's eight requests at max_batch 8 (16
+    token-choices: the ragged dispatch, B6 in the graph) and four greedy
+    ones at max_batch 4 (8 token-choices: the experts gathered, B1 in the
+    graph and no B6). Streams must equal the eager step's."""
+    from bigdl_tpu_torch.models import mixtral
+    from bigdl_tpu_torch.serving.engine import EngineConfig
+    from bigdl_tpu_torch.utils.testing import SyntheticCausalLM
+
+    t0 = time.perf_counter()
+    model = SyntheticCausalLM(params, cfg, family=mixtral)
+    _, requests = _engine_requests(cfg, max_new)
+    greedy4 = [q for q in requests if q[2].temperature <= 0][:4]
+    res = {"phase": "resident_moe", "model": "mixtral-8x7b",
+           "layers": cfg.num_hidden_layers, "max_new_tokens": max_new}
+    counts = {}
+    for name, reqs, mb in (("ragged", requests, 8), ("gather", greedy4, 4)):
+        rec, c, dec = _resident_engine_turns(
+            f"moe {name}", model, reqs,
+            EngineConfig(max_batch=mb, max_seq=2048), ("off", "auto"))
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        if name == "ragged":
+            require(dec["ragged_expert_matmul"] > 0,
+                    "resident moe ragged: B6 did not launch in the graph's "
+                    "decode steps")
+        else:
+            require(dec["dequant_gemv"] > 0 and
+                    dec["ragged_expert_matmul"] == 0,
+                    f"resident moe gather: decode launches {dec}")
+        res[name] = rec
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    return counts
+
+
 SERVER_FAMILIES = (
     "bigdl_tpu_request_phase_seconds", "bigdl_tpu_ttft_seconds",
     "bigdl_tpu_tpot_seconds", "bigdl_tpu_slot_occupancy",
     "bigdl_tpu_queue_depth", "bigdl_tpu_admissions_total",
     "bigdl_tpu_preemptions_total", "bigdl_tpu_stall_guard_trips_total",
     "bigdl_tpu_requests_finished_total", "bigdl_tpu_engine_steps_total",
-    "bigdl_tpu_tokens_generated_total", "bigdl_tpu_requests_cancelled_total")
+    "bigdl_tpu_tokens_generated_total", "bigdl_tpu_requests_cancelled_total",
+    "bigdl_tpu_requests_quarantined_total")
 
 
 class _Served:
@@ -3077,10 +3454,14 @@ def main() -> int:
               "build_s": time.perf_counter() - t0,
               "memory_allocated": torch.cuda.memory_allocated()})
         phase_reference(params, cfg)
+        # the resident step against the eager step, timed before any
+        # torch.profiler window of the process
+        resident = phase_resident(params, cfg)
         counts, slab_toks, slab_shared, slab_peak, step_ms = phase_engine(
             params, cfg)
         # main-path launches: each path's run, counted from 0
-        more = [phase_server(params, cfg, slab_toks, slab_shared, step_ms,
+        more = [resident,
+                phase_server(params, cfg, slab_toks, slab_shared, step_ms,
                              card),
                 phase_prefill_profile(params, cfg, None, "llama2-7b", 100),
                 phase_engine_paged(params, cfg, slab_toks, slab_shared),
@@ -3106,7 +3487,8 @@ def main() -> int:
         moe_params, moe_cfg = phase_model_moe()
         phase_reference_moe(moe_params, moe_cfg)
         from bigdl_tpu_torch.models import mixtral
-        more += [phase_engine_moe(moe_params, moe_cfg),
+        more += [phase_resident_moe(moe_params, moe_cfg),
+                 phase_engine_moe(moe_params, moe_cfg),
                  phase_prefill_profile(moe_params, moe_cfg, mixtral,
                                        "mixtral-8x7b", 256),
                  phase_engine_moe_gather(moe_params, moe_cfg)]

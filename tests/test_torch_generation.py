@@ -293,8 +293,6 @@ def test_unported_generation_paths_name_their_item(models):
         tm.generate(PROMPT_PAD, visual=(np.zeros((3, 11)), np.zeros((1, 8))))
     with pytest.raises(NotImplementedError, match="A16"):
         tgen.Generator(tm.params, tm.config, faults=object())
-    with pytest.raises(NotImplementedError, match="A7-resident"):
-        tgen.generate_on_device(tm.params, tm.config)
     with pytest.raises(NotImplementedError, match="A12"):
         tgen.beam_search(tm.params, tm.config)
     with pytest.raises(ValueError, match="max_seq"):

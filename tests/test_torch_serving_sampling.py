@@ -1,6 +1,6 @@
 """The port's serving engine features against the JAX engine: prompt
-validation, the host sampler, penalties, logprobs, n / best_of, aborts and
-preemption.
+validation, the host sampler, penalties, logprobs, n / best_of, the
+logits health check, aborts and preemption.
 
 Both engines serve the same bytes: the JAX package's random sym_int4
 tiny llama (2 layers, hidden 128, vocab 256; ``test_torch_engine.py``'s
@@ -28,6 +28,7 @@ import pytest
 
 from bigdl_tpu.models import llama as jllama
 from bigdl_tpu.models.llama import LlamaConfig as JaxLlamaConfig
+from bigdl_tpu.observability.metrics import MetricsRegistry as JaxRegistry
 from bigdl_tpu.serving import engine as jengine
 from bigdl_tpu.utils.testing import SyntheticCausalLM as JaxSyntheticLM
 from bigdl_tpu.utils.testing import random_llama_params as jax_random_params
@@ -291,6 +292,62 @@ def test_n_and_best_of_equal_jax(models, jeng):
     assert tt == jt and tr == jr
     assert tt[0][0] != tt[0][1]
     assert all(len(v) == 6 for d in tt for v in d.values())
+
+
+# -- C6: the logits health check -------------------------------------------
+
+
+@pytest.mark.parametrize("resident", ["on", "off"])
+def test_nan_logits_row_is_quarantined_as_in_jax(models, resident,
+                                                 monkeypatch):
+    """Embedding row 7 set to NaN: the request whose prompt holds token 7
+    finishes with "error" and the JAX engine's error dict after its first
+    token (the prefill's; the first decode step's row is not finite), the
+    quarantine counter counts it, and its neighbour's stream equals the
+    JAX engine's; with the resident step on and off."""
+    monkeypatch.setenv("BIGDL_TPU_TORCH_DECODE_RESIDENT", resident)
+    jp = jax.tree.map(np.asarray, models[0].params)
+    emb = np.array(jp["embed_tokens"])
+    emb[7] = np.nan
+    jp = dict(jp, embed_tokens=emb)
+    tp = bridge.params_from_numpy(jp, device="cpu")
+    jeng = jengine.LLMEngine(
+        JaxSyntheticLM(jax.tree.map(jax.numpy.asarray, jp),
+                       models[0].config),
+        jengine.EngineConfig(max_batch=4, max_seq=MAX_SEQ),
+        registry=JaxRegistry())           # keep the process-wide one clean
+    reg = MetricsRegistry()
+    teng = tengine.LLMEngine(
+        SyntheticCausalLM(tp, models[1].config),
+        tengine.EngineConfig(max_batch=4, max_seq=MAX_SEQ), device="cpu",
+        registry=reg)
+    got = {}
+    for pkg, eng in (("jax", jeng), ("port", teng)):
+        sp = _params(pkg, max_tokens=6)
+        for rid, prompt in (("r0", [7, 1, 2, 3, 4]),
+                            ("r1", list(range(9, 15)))):
+            eng.add_request(rid, prompt, sp)
+        outs = {"r0": [], "r1": []}
+        while eng.has_unfinished():
+            eng.step()
+            for rid in outs:
+                outs[rid] += [(o.new_token_ids, o.finished, o.finish_reason,
+                               o.error) for o in eng.get_outputs(rid)]
+        got[pkg] = outs
+    assert got["port"] == got["jax"]
+    r0, r1 = got["port"]["r0"], got["port"]["r1"]
+    assert r0 == [([0], False, None, None),
+                  ([], True, "error", {"reason": "nan_logits",
+                                       "request_id": "r0"})]
+    assert [t for o in r1 for t in o[0]] == [14, 14, 250, 143, 143, 143]
+    assert r1[-1][2] == "length"
+    summ = reg.summary()
+    assert summ['bigdl_tpu_requests_quarantined_total{reason="nan_logits"}'] \
+        == 1
+    assert summ['bigdl_tpu_requests_quarantined_total{reason="crash_loop"}'] \
+        == 0
+    assert summ['bigdl_tpu_requests_finished_total{reason="error"}'] == 1
+    assert (teng.resident_steps > 0) == (resident == "on")
 
 
 # -- aborts ------------------------------------------------------------------
